@@ -7,17 +7,26 @@
 2. builds the port's CUDA kernels (csrc/*.cu, one nvcc per source, in
    parallel) into build/dvpmvs_torch/;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
-   card, at the shapes the main path gives it (608x800, V=10), and times
-   both with CUDA events;
-4. path phase: runs the main path of pyramid round 0 through the port's
-   entry point run_pass with the "fused" backend: FIRST_INIT on views 0-4 of
-   a synthetic 608x800 scene (10 replicated source views, Canny edges,
-   3 iterations), then REFINE_ITER on view 0 with the radius map of its
-   FIRST_INIT output (as the scene runner passes it) and without (as the
-   JAX bench does); checks depth accuracy against the ground truth and that
-   every kernel was launched;
-5. with ``--profile`` only: runs each pass once more under torch.profiler
-   and prints the device's busy time and the device time by kernel;
+   card, at the shapes the main path gives it (608x800, V=10; K4 at the
+   compacted weak pixels of one color of a 30 % weak mask, K_w = 121,600),
+   and times both with CUDA events;
+4. path phase, round 0: runs the main path of pyramid round 0 through the
+   port's entry point run_pass with the "fused" backend: FIRST_INIT on
+   views 0-4 of a synthetic 608x800 scene (10 replicated source views,
+   Canny edges, 3 iterations), then REFINE_ITER on view 0 with the radius
+   map of its FIRST_INIT output (as the scene runner passes it) and without
+   (as the JAX bench does); checks depth accuracy against the ground truth
+   and that each of K1, K2 and K3 (fold, per view) was launched;
+5. path phase, the weak-pixel (APD) passes of rounds >= 1: REFINE_INIT of
+   round 1 on view 0 from its FIRST_INIT output, then REFINE_ITER in the
+   JAX bench's configuration (use_APD, geometric consistency against the
+   other views' FIRST_INIT depths, 3 iterations); checks acc2, that the
+   pass had weak pixels, and that K4 and K3's parity mode were launched;
+   then the same chain on a scene with a textureless band, whose weak
+   region's acc2 it prints before and after;
+6. with ``--profile`` only: runs each pass once more under torch.profiler
+   and prints the device's busy time and the device time by kernel, and
+   the same for the anchor search and one RANSAC fit on their own;
 6. prints one JSON line with the kernels' numbers, the card line, and as
    the last line {"ok": true, "device": {...}}.
 
@@ -49,17 +58,30 @@ K2_OPS_PER_FIELD = 35        # one warped-field bilinear sample
 K2_OPS_PER_TAP = 7           # three moment updates from the field
 K2_OPS_PER_VIEW = 30         # in-view test, NCC tail, weighted fold
 K3_OPS_PER_VIEW = 110        # project, lookup, back-project, re-project
+# K4 per (slot, pixel, view, anchor): ray . q 4, homography rows 18, front
+# and guard 3, divides 2, in-view 4, clamps 4, floors 2, fractions 2,
+# bilinear blend 11, shifts by c0 2, weight select 1, moments 15, counts 2
+K4_OPS_PER_ANCHOR = 70
+K4_OPS_PER_GROUP = 25        # the group's NCC from its moments
+K4_OPS_PER_VIEW = 10         # the groups' mean and the out-of-view blend
+WEAK_FRAC = 0.3              # the random weak share of the K4 inputs
+S_SLOTS, N_ANCHORS = 10, 11
 
 REPLACES = {
     "ncc_fused": "dvpmvs/kernels/ncc_fused.py:864",
     "sweep": "dvpmvs/kernels/sweep_pallas.py:286",
     "geom": "dvpmvs/kernels/geom_pallas.py:208",
+    "anchor": "dvpmvs/kernels/anchor_pallas.py:394",
 }
 SOURCES = {
     "ncc_fused": "dvpmvs_torch/csrc/ncc_fused.cu",
     "sweep": "dvpmvs_torch/csrc/sweep.cu",
     "geom": "dvpmvs_torch/csrc/geom.cu",
+    "anchor": "dvpmvs_torch/csrc/anchor.cu",
 }
+# the launch counters read by the kernels of the weak-pixel passes (the
+# others are read from the round-0 path)
+APD_COUNTERS = ("anchor", "geom/parity")
 
 
 def card_line() -> str:
@@ -170,8 +192,8 @@ def kernel_phase(torch, dev, scene, reps):
         ops = P * B * V * (36 * K1_OPS_PER_TAP + K1_OPS_PER_VIEW)
         nbytes = 4 * (B * P * 4 + 2 * 36 * P + 3 * P + V * H * W
                       + (P if c.has_radius_map else 0) + B * P * V)
-        rows.append(("ncc_fused", label, err, ms, plain, *bound_ms(ops,
-                                                                   nbytes)))
+        rows.append(("ncc_fused", "ncc_fused", label, err, ms, plain,
+                     *bound_ms(ops, nbytes)))
 
     sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
     baseline, _ = _mean_selected_baseline(sel, ref_cam, src_cams)
@@ -198,8 +220,8 @@ def kernel_phase(torch, dev, scene, reps):
                                + K2_OPS_PER_VIEW)
         nbytes = 4 * (2 * H * W + V * H * W + 72 * H * W + 3 * H * W
                       + V * H * W + K * H * W)
-        rows.append(("sweep", label, err, ms, plain, *bound_ms(ops,
-                                                               nbytes)))
+        rows.append(("sweep", "sweep", label, err, ms, plain,
+                     *bound_ms(ops, nbytes)))
 
     src_depths = torch.as_tensor(scene.gt_depth[reps], device=dev)
     gctx = build_geom_context(src_depths, ref_cam, src_cams)
@@ -222,8 +244,98 @@ def kernel_phase(torch, dev, scene, reps):
         ops = K * H * W * V * K3_OPS_PER_VIEW
         nbytes = 4 * (K * H * W + V * H * W
                       + (V * H * W + K * H * W if fold else K * H * W * V))
-        rows.append(("geom", label, err, ms, plain, *bound_ms(ops, nbytes)))
+        rows.append(("geom", "geom/fold" if fold else "geom/per view",
+                     label, err, ms, plain, *bound_ms(ops, nbytes)))
+
+    # K3's parity mode: the geom term of the weak half-iterations (10 slot
+    # planes, 6 refinement proposals) on one checkerboard color
+    Wp = (W + 1) // 2
+    for K in (10, 6):
+        for color in (0, 1):
+            label = f"parity {color}, K={K}"
+            ks = 1.0 + 0.02 * (torch.arange(K, dtype=torch.float32,
+                                            device=dev) - K // 2)
+            dstack = (pack_parity(gt_depth, color)[None]
+                      * ks[:, None, None]).contiguous()
+            got = geom_fused.geom_cost(gctx, dstack, parity=color)
+            want = geom_fused.geom_cost_plain(gctx, dstack, parity=color)
+            torch.cuda.synchronize()
+            err = compare(torch, got, want, 1e-3, 1e-3, f"geom {label}")
+            ms = cuda_ms(torch, lambda: geom_fused.geom_cost(
+                gctx, dstack, parity=color), 5)
+            plain = cuda_ms(torch, lambda: geom_fused.geom_cost_plain(
+                gctx, dstack, parity=color), 1)
+            ops = K * H * Wp * V * K3_OPS_PER_VIEW
+            nbytes = 4 * (K * H * Wp + V * H * W + K * H * Wp * V)
+            rows.append(("geom", "geom/parity", label, err, ms, plain,
+                         *bound_ms(ops, nbytes)))
+
+    rows += k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams,
+                    gt_plane, rand)
     return rows
+
+
+def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
+            rand):
+    """K4 at the main path's shapes: the anchors that find_anchors gives a
+    30 % random weak mask on the ground-truth planes, compacted on one
+    checkerboard color (K_w = 121,600 at 608x800), 10 slot planes."""
+    import numpy as np
+    from dvpmvs_torch.config import PixelState
+    from dvpmvs_torch.engine.packing import pack_parity
+    from dvpmvs_torch.engine.patchmatch import _band_compact, _weak_budget
+    from dvpmvs_torch.kernels import anchor_fused
+    from dvpmvs_torch.kernels.deformable import anchor_fields_at
+    from dvpmvs_torch.kernels.ncc import build_cost_context
+    from dvpmvs_torch.kernels.weak import find_anchors
+    from dvpmvs_torch.rng import TorchDraws
+
+    rng = np.random.default_rng(0)
+    weak = torch.as_tensor(np.where(rng.uniform(size=(H, W)) < WEAK_FRAC,
+                                    PixelState.WEAK, PixelState.STRONG)
+                           .astype(np.int8), device=dev)
+    anchors = find_anchors(weak, gt_plane, ref_cam, TorchDraws(0, dev), (),
+                           rotate_time=4, depth_range=float(
+                               ref_cam.depth_max - ref_cam.depth_min))
+    ctx_yzl = build_cost_context(ref_img, src_imgs, ref_cam, src_cams, 5.0,
+                                 3.0, backend="fused",
+                                 color_only_weights=True)
+    sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
+    color = 0
+    pk1 = lambda a, axis=0: pack_parity(a, color, axis)
+    weak_pk = pk1(weak == PixelState.WEAK)
+    SZ = weak_pk.numel()
+    K_w = _weak_budget(SZ, 0.5)
+    flat_idx, ok_k = _band_compact(weak_pk, K_w)
+    gidx = torch.clamp(flat_idx, max=SZ - 1)
+    af = anchor_fields_at(ctx_yzl, anchors, sel, ref_img, 3.0, pk1, gidx)
+    plane_k = pk1(gt_plane).reshape(SZ, 4)[gidx]
+    planes = plane_k[None].repeat(S_SLOTS, 1, 1)
+    planes[..., 3] *= 1.0 + 0.1 * (rand(S_SLOTS, K_w) - 0.5)
+    n_weak = int(ok_k.sum())
+    n_valid = int(af.valid[:, ok_k].sum())
+    print(f"  K4 inputs: K_w {K_w}, weak pixels {n_weak}, valid anchors "
+          f"{n_valid} of {N_ANCHORS * n_weak}", flush=True)
+
+    args = anchor_fused.kernel_args(ctx_yzl, planes, af, ok_k)
+    run = lambda: anchor_fused.anchor_slot_costs(*args)
+    got = run()
+    want = anchor_fused.anchor_slot_costs_plain(*args)
+    torch.cuda.synchronize()
+    label = f"S={S_SLOTS}, K={K_w}, A={N_ANCHORS}"
+    if not torch.equal(got.has_anchors, want.has_anchors):
+        raise AssertionError("anchor: has_anchors differs from the plain "
+                             "version")
+    err = compare(torch, got.cost, want.cost, 1e-3, 1e-3, f"anchor {label}")
+    ms = cuda_ms(torch, run, 5)
+    plain = cuda_ms(torch, lambda: anchor_fused.anchor_slot_costs_plain(
+        *args), 1)
+    ops = S_SLOTS * K_w * V * (N_ANCHORS * K4_OPS_PER_ANCHOR
+                               + 2 * K4_OPS_PER_GROUP + K4_OPS_PER_VIEW)
+    nbytes = (4 * (S_SLOTS * K_w * 3 + 5 * N_ANCHORS * K_w + V * H * W)
+              + 5 * S_SLOTS * K_w * V)
+    return [("anchor", "anchor", label, err, ms, plain,
+             *bound_ms(ops, nbytes))]
 
 
 def acc2(depth, gt) -> float:
@@ -234,66 +346,93 @@ def acc2(depth, gt) -> float:
     return float(((rel < 0.02) & (d > 0)).mean())
 
 
-def path_phase(torch, dev, scene):
-    """FIRST_INIT on views 0-4, then REFINE_ITER on view 0 with and without
-    the radius map, through run_pass with the fused backend."""
-    import numpy as np
-    from dvpmvs_torch.config import PMStatic, round_pass_params
+def counts():
+    """Launch counts by kernel and, for K3, by mode."""
+    from dvpmvs_torch.kernels import _build
+    return {**_build.LAUNCHES, **_build.MODE_LAUNCHES}
+
+
+def timed(torch, fn):
+    """fn() on the card: (result, wall seconds, launches during it)."""
+    torch.cuda.synchronize()
+    before = counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = counts()
+    return out, dt, {k: n - before.get(k, 0) for k, n in after.items()
+                     if n - before.get(k, 0)}
+
+
+def problem(torch, scene, v):
+    """View v's 10 replicated source views, camera and Canny edge map."""
+    from dvpmvs_torch.priors.edges import edge_segment
+    nv = len(scene.cameras)
+    others = [i for i in range(nv) if i != v]
+    reps = [others[j % len(others)] for j in range(V)]
+    edge = torch.as_tensor(edge_segment(0, scene.images[v]) > 0)
+    return reps, scene.cameras[v], edge
+
+
+def first_init_views(torch, dev, scene, base, tag):
+    """FIRST_INIT of round 0 on every view: {v: (out, seconds, acc2)} and
+    the pass of view 0 as a callable."""
+    from dvpmvs_torch.config import round_pass_params
     from dvpmvs_torch.engine import run_pass
     from dvpmvs_torch.geometry import stack_cameras
-    from dvpmvs_torch.kernels import _build
-    from dvpmvs_torch.priors.edges import edge_segment
     from dvpmvs_torch.rng import TorchDraws
 
-    base = PMStatic(num_src=V, max_iterations=ITERS, cost_backend="fused")
-    nv = len(scene.cameras)
-
-    def problem(v):
-        others = [i for i in range(nv) if i != v]
-        reps = [others[j % len(others)] for j in range(V)]
-        cam = scene.cameras[v]
-        edge = torch.as_tensor(edge_segment(0, scene.images[v]) > 0)
-        return reps, cam, edge
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        before = dict(_build.LAUNCHES)
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
-        return out, dt, launches
-
-    per_pass = {}
-    passes = {}
-    _build.reset_launches()
-    first = {}
-    for v in range(nv):
-        reps, cam, edge = problem(v)
+    first, fn0, launches0 = {}, None, None
+    for v in range(len(scene.cameras)):
+        reps, cam, edge = problem(torch, scene, v)
         st, dyn = round_pass_params(0, 1, 0, base, float(cam.depth_min),
                                     float(cam.depth_max))
         fn = (lambda v=v, reps=reps, cam=cam, edge=edge, st=st, dyn=dyn:
               run_pass(scene.images[v], scene.images[reps], cam,
                        stack_cameras([scene.cameras[i] for i in reps]), st,
                        dyn, TorchDraws(v, dev), edge=edge, device=dev))
-        out, dt, launches = timed(fn)
+        out, dt, launches = timed(torch, fn)
         a = acc2(out.depth.cpu().numpy(), scene.gt_depth[v])
-        print(f"  FIRST_INIT view {v}: {dt:.3f} s, acc2 {a:.4f}, "
+        print(f"  {tag}FIRST_INIT view {v}: {dt:.3f} s, acc2 {a:.4f}, "
               f"launches {launches}", flush=True)
         if not torch.isfinite(out.depth).all() or \
                 tuple(out.depth.shape) != (H, W):
             raise AssertionError(f"FIRST_INIT view {v}: bad depth map")
         first[v] = (out, dt, a)
         if v == 0:
-            per_pass["FIRST_INIT"] = launches
-            passes["FIRST_INIT"] = fn
+            fn0, launches0 = fn, launches
+    return first, fn0, launches0
+
+
+def require_launched(totals, names, what):
+    for name in names:
+        if totals.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on {what}")
+
+
+def path_phase(torch, dev, scene):
+    """FIRST_INIT on views 0-4, then REFINE_ITER on view 0 with and without
+    the radius map, through run_pass with the fused backend."""
+    from dvpmvs_torch.config import PMStatic, round_pass_params
+    from dvpmvs_torch.engine import run_pass
+    from dvpmvs_torch.geometry import stack_cameras
+    from dvpmvs_torch.kernels import _build
+    from dvpmvs_torch.rng import TorchDraws
+
+    base = PMStatic(num_src=V, max_iterations=ITERS, cost_backend="fused")
+    nv = len(scene.cameras)
+    per_pass = {}
+    passes = {}
+    _build.reset_launches()
+    first, passes["FIRST_INIT"], per_pass["FIRST_INIT"] = first_init_views(
+        torch, dev, scene, base, "")
     out0, first_dt, first_acc = first[0]
     if first_acc < ACC2_FLOOR:
         raise AssertionError(f"FIRST_INIT acc2 {first_acc:.4f} < "
                              f"{ACC2_FLOOR}")
 
-    reps, cam, edge = problem(0)
+    reps, cam, edge = problem(torch, scene, 0)
     st_r, dyn_r = round_pass_params(0, 1, 1, base, float(cam.depth_min),
                                     float(cam.depth_max))
     src_depths = torch.stack([first[r][0].depth for r in reps])
@@ -306,7 +445,7 @@ def path_phase(torch, dev, scene):
             TorchDraws(100, dev), init_plane_world=init_world,
             init_sel_views=out0.sel_views, init_weak=out0.weak,
             src_depths=src_depths, radius_map=rmap, edge=edge, device=dev))
-        out, dt, launches = timed(fn)
+        out, dt, launches = timed(torch, fn)
         a = acc2(out.depth.cpu().numpy(), scene.gt_depth[0])
         print(f"  REFINE_ITER view 0 ({label}): {dt:.3f} s, acc2 {a:.4f}, "
               f"launches {launches}", flush=True)
@@ -318,11 +457,9 @@ def path_phase(torch, dev, scene):
         refine[label] = (dt, a)
         per_pass[f"REFINE_ITER ({label})"] = launches
         passes[f"REFINE_ITER ({label})"] = fn
-    totals = dict(_build.LAUNCHES)
-    for name, n in totals.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    totals = counts()
+    require_launched(totals, ("ncc_fused", "sweep", "geom/fold",
+                              "geom/per view"), "the round-0 path")
     warm = sorted(first[v][1] for v in range(1, nv))
     warm_s = warm[len(warm) // 2]
     summary = {
@@ -337,7 +474,156 @@ def path_phase(torch, dev, scene):
         "refine_acc2": refine["no radius map"][1],
         "launches_per_pass": per_pass,
     }
+    return totals, summary, passes, first
+
+
+def region_mask(scene_kw):
+    """The interior textureless region of view 0 (local variance < 1 in a
+    7x7 window of the noise-free image, 6 px margin), as
+    tests/test_weak_battery.py defines it."""
+    from scipy.ndimage import uniform_filter
+    from dvpmvs_torch.utils.synthetic import make_scene
+    img = make_scene(num_views=1, height=H, width=W, **scene_kw).images[0]
+    region = (uniform_filter(img ** 2, 7) - uniform_filter(img, 7) ** 2) < 1.0
+    m = 6
+    region[:m] = region[-m:] = region[:, :m] = region[:, -m:] = False
+    return region
+
+
+def region_acc2(depth, gt, region) -> float:
+    import numpy as np
+    rel = np.abs(depth - gt) / np.maximum(gt, 1e-6)
+    return float(((rel < 0.02) & (depth > 0) & region).sum()
+                 / max(int(region.sum()), 1))
+
+
+def apd_chain(torch, dev, scene, first, tag, refine_init: bool):
+    """The weak-pixel passes on view 0 from the FIRST_INIT outputs
+    ``first``: REFINE_INIT of round 1 (if ``refine_init``), then REFINE_ITER
+    in the JAX bench's configuration (bench.py:131-159: use_APD, geometric
+    consistency against the other views' FIRST_INIT depths, no labels,
+    3 iterations, edges).  Returns {label: (out, seconds, launches, callable,
+    input weak count)}."""
+    from dvpmvs_torch.config import (PixelState, PMDynamic, PMStatic,
+                                     RunState, round_pass_params)
+    from dvpmvs_torch.engine import run_pass
+    from dvpmvs_torch.geometry import stack_cameras
+    from dvpmvs_torch.rng import TorchDraws
+
+    reps, cam, edge = problem(torch, scene, 0)
+    out0 = first[0][0]
+    init = dict(init_plane_world=torch.cat(
+        [out0.normal_world, out0.depth[..., None]], -1),
+        init_sel_views=out0.sel_views, init_weak=out0.weak)
+    src_cams = stack_cameras([scene.cameras[i] for i in reps])
+    base = PMStatic(num_src=V, max_iterations=ITERS, cost_backend="fused")
+    runs = []
+    if refine_init:
+        st, dyn = round_pass_params(1, 2, 0, base, float(cam.depth_min),
+                                    float(cam.depth_max))
+        runs.append(("REFINE_INIT (round 1)", st, dyn, {}))
+    st = PMStatic(state=RunState.REFINE_ITER, num_src=V,
+                  max_iterations=ITERS, cost_backend="fused", use_APD=True,
+                  geom_consistency=True, use_label=False)
+    dyn = PMDynamic.create(depth_min=float(cam.depth_min),
+                           depth_max=float(cam.depth_max))
+    runs.append(("REFINE_ITER (APD, geom)", st, dyn, dict(
+        src_depths=torch.stack([first[r][0].depth for r in reps]))))
+    result = {}
+    for label, st, dyn, extra in runs:
+        fn = (lambda st=st, dyn=dyn, extra=extra: run_pass(
+            scene.images[0], scene.images[reps], cam, src_cams, st, dyn,
+            TorchDraws(0, dev), edge=edge, device=dev, **init, **extra))
+        out, dt, launches = timed(torch, fn)
+        n_weak = int((out0.weak == PixelState.WEAK).sum())
+        a = acc2(out.depth.cpu().numpy(), scene.gt_depth[0])
+        print(f"  {tag}{label} view 0: {dt:.3f} s, weak pixels {n_weak}, "
+              f"weak_overflow {int(out.weak_overflow)}, acc2 {a:.4f}, "
+              f"launches {launches}", flush=True)
+        if not torch.isfinite(out.depth).all() or \
+                tuple(out.depth.shape) != (H, W):
+            raise AssertionError(f"{label}: bad depth map")
+        result[label] = (out, dt, launches, fn, n_weak, a)
+    return result
+
+
+def apd_phase(torch, dev, scene, first):
+    """The weak-pixel passes on the bench scene (counted), then the same
+    chain on a scene with a textureless band (its region's acc2)."""
+    from dvpmvs_torch.config import PMStatic
+    from dvpmvs_torch.kernels import _build
+    from dvpmvs_torch.utils.synthetic import make_scene
+
+    _build.reset_launches()
+    res = apd_chain(torch, dev, scene, first, "", refine_init=True)
+    totals = counts()
+    it_label = "REFINE_ITER (APD, geom)"
+    a = res[it_label][5]
+    if a < ACC2_FLOOR:
+        raise AssertionError(f"{it_label} acc2 {a:.4f} < {ACC2_FLOOR}")
+    for label, r in res.items():
+        if r[4] <= 0:
+            raise AssertionError(f"{label}: no weak pixel in the pass")
+    require_launched(totals, ("anchor", "geom/parity", "ncc_fused"),
+                     "the weak-pixel path")
+
+    band_kw = dict(seed=6, weak_band=True)
+    band = make_scene(num_views=5, height=H, width=W, **band_kw)
+    region = region_mask(band_kw)
+    base = PMStatic(num_src=V, max_iterations=ITERS, cost_backend="fused")
+    band_first, _, _ = first_init_views(torch, dev, band, base, "band ")
+    band_res = apd_chain(torch, dev, band, band_first, "band ",
+                         refine_init=False)
+    gt = band.gt_depth[0]
+    before = region_acc2(band_first[0][0].depth.cpu().numpy(), gt, region)
+    after = region_acc2(band_res[it_label][0].depth.cpu().numpy(), gt,
+                        region)
+    print(f"  band scene: textureless region {int(region.sum())} px, acc2 "
+          f"{before:.4f} after FIRST_INIT, {after:.4f} after {it_label}",
+          flush=True)
+    summary = {
+        label: {"s": r[1], "acc2": r[5], "weak_pixels": r[4],
+                "weak_overflow": int(r[0].weak_overflow), "launches": r[2]}
+        for label, r in res.items()}
+    summary["band"] = {
+        "region_px": int(region.sum()), "region_acc2_first_init": before,
+        "region_acc2_refine_iter": after,
+        "refine_iter_s": band_res[it_label][1],
+        "weak_pixels": band_res[it_label][4],
+        "acc2": band_res[it_label][5]}
+    passes = {label: r[3] for label, r in res.items()}
     return totals, summary, passes
+
+
+def weak_parts(torch, dev, scene, first):
+    """The anchor search (once per pass) and the RANSAC fit (once per
+    iteration) of the bench REFINE_ITER on their own, as callables for the
+    profile: their share of the launch stream."""
+    from dvpmvs_torch.geometry.transforms import plane_from_world
+    from dvpmvs_torch.kernels.ncc import _grid
+    from dvpmvs_torch.kernels.weak import (edge_complexity,
+                                           edge_ray_distance, find_anchors,
+                                           ransac_fit_plane)
+    from dvpmvs_torch.rng import TorchDraws
+
+    _, cam, edge = problem(torch, scene, 0)
+    cam, edge = cam.to(dev), edge.to(dev)
+    out0 = first[0][0]
+    xs, ys = _grid(H, W, dev)
+    plane = plane_from_world(torch.cat(
+        [out0.normal_world, out0.depth[..., None]], -1), xs, ys, cam)
+    cplx = edge_complexity(edge, 5)
+    drange = float(cam.depth_max - cam.depth_min)
+    search = lambda: find_anchors(out0.weak, plane, cam, TorchDraws(0, dev),
+                                  (), rotate_time=4, edge=edge,
+                                  complexity=cplx, depth_range=drange)
+    anchors = search()
+    edist = edge_ray_distance(edge)
+    fit = lambda: ransac_fit_plane(anchors, plane, out0.weak, cam,
+                                   TorchDraws(0, dev), (), use_radius=True,
+                                   edge_dist=edist)
+    return {"find_anchors (bench REFINE_ITER)": search,
+            "ransac_fit_plane (one iteration)": fit}
 
 
 def profile_phase(torch, passes):
@@ -348,7 +634,7 @@ def profile_phase(torch, passes):
     from torch.profiler import ProfilerActivity, profile
 
     ours = {"ncc_fused_kernel": "ncc_fused", "sweep_kernel": "sweep",
-            "geom_kernel": "geom"}
+            "geom_kernel": "geom", "anchor_kernel": "anchor"}
     result = {}
     for label, fn in passes.items():
         torch.cuda.synchronize()
@@ -414,20 +700,27 @@ def main() -> int:
     reps0 = [[1, 2, 3, 4][j % 4] for j in range(V)]
     print("kernel phase (kernel vs plain on the card):", flush=True)
     rows = kernel_phase(torch, dev, scene, reps0)
-    print("path phase (fused backend, 608x800, V=10):", flush=True)
-    totals, summary, passes = path_phase(torch, dev, scene)
+    print("path phase, round 0 (fused backend, 608x800, V=10):", flush=True)
+    totals, summary, passes, first = path_phase(torch, dev, scene)
+    print("path phase, weak-pixel passes (fused backend, 608x800, V=10):",
+          flush=True)
+    totals_apd, summary["apd"], apd_passes = apd_phase(torch, dev, scene,
+                                                       first)
+    passes.update(apd_passes)
     if "--profile" in sys.argv[1:]:
         print("profile phase (torch.profiler, one run of each pass):",
               flush=True)
+        passes.update(weak_parts(torch, dev, scene, first))
         profile_phase(torch, passes)
 
     kernels = []
-    for name, label, err, ms, plain, bms, bby in rows:
+    for name, counter, label, err, ms, plain, bms, bby in rows:
+        path_totals = totals_apd if counter in APD_COUNTERS else totals
         kernels.append({
             "name": f"{name} ({label})", "route": "cuda",
             "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": totals[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": bby,
+            "launches": path_totals.get(counter, 0), "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": bby,
             "library_ms": None,
         })
     print(json.dumps({"path": summary}), flush=True)

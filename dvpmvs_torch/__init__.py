@@ -8,8 +8,9 @@ reference).  The layout mirrors ``dvpmvs``:
   kernels/   the hot path: bilateral-NCC cost (K1, csrc/ncc_fused.cu),
              checkerboard propagation, refinement, median filter, disparity
              sweeps (K2, csrc/sweep.cu), geometric consistency
-             (K3, csrc/geom.cu), plus the kernels' build and load step
-             (_build.py)
+             (K3, csrc/geom.cu), the weak-pixel machinery (anchors, RANSAC
+             fit) and its anchor term (K4, csrc/anchor.cu), plus the
+             kernels' build and load step (_build.py)
   priors/    the Canny depth-edge prior (host numpy/scipy)
   engine/    the per-view PatchMatch pass
   utils/     synthetic scenes

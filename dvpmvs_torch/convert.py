@@ -19,6 +19,7 @@ from . import resolve_device
 from .config import PMDynamic, PMStatic, RunState
 from .engine.state import PassOutput
 from .geometry.camera import Camera
+from .kernels.weak import AnchorResult
 
 _BACKENDS = {"pallas": "fused", "exact": "exact", "fused": "fused"}
 
@@ -65,12 +66,24 @@ def dynamic_params(src: Any) -> PMDynamic:
                                kw.items()})
 
 
-def pass_output(src: Any, device=None) -> PassOutput:
-    """depth, normal_world, cost, weak, sel_views, view_weights, radius ->
-    PassOutput."""
+def anchors(src: Any, device=None) -> AnchorResult:
+    """coords, valid, reliable (an AnchorResult of either package) ->
+    AnchorResult."""
     dev = resolve_device(device)
     t = lambda k, dt: torch.as_tensor(np.asarray(_get(src, k)), device=dev
                                       ).to(dt)
+    return AnchorResult(coords=t("coords", torch.int32),
+                        valid=t("valid", torch.bool),
+                        reliable=t("reliable", torch.bool))
+
+
+def pass_output(src: Any, device=None) -> PassOutput:
+    """depth, normal_world, cost, weak, sel_views, view_weights, radius and
+    weak_overflow (where present and not None) -> PassOutput."""
+    dev = resolve_device(device)
+    t = lambda k, dt: torch.as_tensor(np.asarray(_get(src, k)), device=dev
+                                      ).to(dt)
+    over = _fields(src, ["weak_overflow"]).get("weak_overflow")
     return PassOutput(
         depth=t("depth", torch.float32),
         normal_world=t("normal_world", torch.float32),
@@ -79,4 +92,6 @@ def pass_output(src: Any, device=None) -> PassOutput:
         sel_views=t("sel_views", torch.bool),
         view_weights=t("view_weights", torch.float32),
         radius=t("radius", torch.float32),
+        weak_overflow=None if over is None else t("weak_overflow",
+                                                  torch.int32),
     )

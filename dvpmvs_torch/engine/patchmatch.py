@@ -1,16 +1,22 @@
 """The per-view PatchMatch pass (counterpart of
-``dvpmvs/engine/patchmatch.py``), for the passes of round 0: FIRST_INIT and
-REFINE_ITER with ``use_APD=False``.
+``dvpmvs/engine/patchmatch.py``): FIRST_INIT, REFINE_INIT and REFINE_ITER,
+with or without the weak-pixel machinery (``use_APD``).
 
     init (random init + top-k initial cost, or the previous pass's planes)
+    [use_APD] detail demotion, complexity, anchor generation + reliability
     for iter in range(max_iterations):
         for color in (black, red):
             strong propagation -> MHJVS -> adoption -> 6-plane refinement
+        [use_APD] RANSAC fit planes, then per color:
+            weak propagation over the 8 anchor planes (deformable cost,
+            geometric consistency) -> fit-plane test -> refinement
     plane -> (depth, world normal);  checkerboard median filter
     DepthToWeak reclassification;  LocalRefine polish
 
 Each half-iteration computes proposals on the checkerboard-packed half grid
 (fused backend) or the full grid (exact backend) and commits only its color.
+The weak half computes its anchor term (K4) at a compacted band-major list
+of the weak pixels of its grid and scatters it over the center-window cost.
 Random draws come from a draw source (``rng.py``) at the full-grid shapes
 of JAX's exact path, under the JAX key paths of the same sites.
 """
@@ -19,14 +25,18 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..config import PMDynamic, PMStatic, PixelState, RunState
 from ..geometry.camera import Camera
 from ..geometry.transforms import depth_from_plane, plane_from_world
+from ..kernels.anchor_fused import anchor_slot_costs_from_ctx
+from ..kernels.deformable import anchor_fields_at
 from ..kernels.gatherfree import take0
 from ..kernels.geom import build_geom_context
+from ..kernels.geom_fused import geom_cost
 from ..kernels.median import median_filter_depth
 from ..kernels.ncc import (COST_MAX, CostContext, _grid, build_cost_context,
                            ncc_cost, ncc_cost_batch)
@@ -37,7 +47,9 @@ from ..kernels.refine import refinement_planes
 from ..kernels.sampling import (identity_pack, plane_from_normal_depth,
                                 random_depth, visibility_prior_normal)
 from ..kernels.sweep import depth_to_weak, local_refine
-from ..kernels.weak import edge_ray_distance
+from ..kernels.weak import (AnchorResult, demote_detail, edge_complexity,
+                            edge_ray_distance, find_anchors,
+                            label_boundary_distance, ransac_fit_plane)
 from ..rng import DrawSource, fold_in, split
 from .packing import pack_ctx, pack_parity, unpack_parity
 from .state import PassOutput, PMState
@@ -216,6 +228,260 @@ def _propagate_color_strong(state: PMState, color: int, it: int, path_it,
     )
 
 
+def _geom_batch(gctx, planes, xs, ys, ref_cam, parity=None):
+    """Geom cost of K candidate plane fields [K, H', W', 4] -> [K, H', W',
+    V] through K3 (dense, or one checkerboard color with ``parity``)."""
+    depths = depth_from_plane(planes, xs, ys, ref_cam)
+    return geom_cost(gctx, depths.contiguous(), parity=parity)
+
+
+_BAND_LANES = 128   # compaction band width (packed columns)
+
+
+def _weak_budget(SZ: int, frac: float) -> int:
+    """Compaction budget K_w: ``frac`` of the evaluation grid, rounded up to
+    a multiple of 128, at least 128, at most the grid."""
+    K_w = max(-(-int(SZ * frac) // 128) * 128, 128)
+    return min(K_w, SZ)
+
+
+def _band_compact(weak_pk: torch.Tensor, K_w: int):
+    """The first K_w weak pixels of the evaluation grid in band-major order
+    (bands of 128 columns, rows within a band, columns within a row), as
+    JAX's ``jnp.nonzero(size=K_w)`` lists them.
+
+    A cumulative sum ranks the weak pixels on the device, so nothing waits
+    for the host.  Past the budget the order decides which weak pixels get
+    the anchor term, so it is JAX's.  Returns (flat_idx [K_w] raster indices
+    into the grid, SZ for an empty entry; ok_k [K_w] bool)."""
+    Hc, Wc = weak_pk.shape
+    dev = weak_pk.device
+    SZ = Hc * Wc
+    band = min(_BAND_LANES, Wc)
+    nb = -(-Wc // band)
+    Wp = nb * band
+    SZp = Hc * Wp
+    wpad = torch.zeros((Hc, Wp), dtype=torch.bool, device=dev)
+    wpad[:, :Wc] = weak_pk
+    mask_bm = wpad.reshape(Hc, nb, band).permute(1, 0, 2).reshape(-1)
+    rank = torch.cumsum(mask_bm.to(torch.int32), 0) - 1
+    slot = torch.where(mask_bm & (rank < K_w), rank.to(torch.int64),
+                       torch.full_like(rank, K_w, dtype=torch.int64))
+    p = torch.full((K_w + 1,), SZp, dtype=torch.int64, device=dev)
+    p.scatter_(0, slot, torch.arange(SZp, device=dev))   # slot K_w: spill
+    p = p[:K_w]
+    ok_k = p < SZp
+    b, rem = p // (Hc * band), p % (Hc * band)
+    r, c = rem // band, rem % band
+    flat_idx = torch.where(ok_k, r * Wc + torch.clamp(b * band + c,
+                                                      max=Wc - 1),
+                           torch.full_like(p, SZ))
+    return flat_idx, ok_k
+
+
+def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
+                          color: int, it: int, path_it, draws: DrawSource,
+                          ctx, ctx_pk, ctx_yzl, ctx_yzl_pk, gctx, ref_img,
+                          ref_cam, src_cams, static: PMStatic,
+                          dyn: PMDynamic, xs, ys, rx, ry,
+                          parity) -> PMState:
+    """One weak half-iteration (CheckerboardPropagationWeak,
+    APD.cu:2739-3089), anchor-center production mode.
+
+    Costs, geom terms, MHJVS and refinement run on the checkerboard-packed
+    half grid (fused backend) or the full grid (exact backend).  Every slot
+    plane (8 anchor-plane candidates, current, fit) costs 0.25 x center
+    window + 0.75 x its own anchor term (K4) at the compacted weak pixels;
+    the 6 refinement proposals reuse the current plane's anchor term.  Weak
+    pixels past the budget keep the center-window cost.  Every tile is
+    computed: JAX's weak-tile skip changes no result."""
+    H, W = ref_img.shape
+    V = ctx.num_views
+    path_c = fold_in(fold_in(path_it, color), 7)
+    p_view, p_refine = split(path_c, 2, 0), split(path_c, 2, 1)
+    use_pk = ctx_pk is not None
+    if use_pk:
+        pk1 = lambda a, axis=0: pack_parity(a, color, axis)
+    else:
+        pk1 = identity_pack
+    pk = lambda a: pk1(a, 0)
+    par = color if use_pk else None
+    ctx_c = ctx_pk if use_pk else ctx
+    ctx_yzl_c = ctx_yzl_pk if use_pk else ctx_yzl
+
+    # weak-pixel compaction: the anchor term only matters where a weak
+    # pixel can commit, so it runs on a fixed-size list of them
+    weak_pk = pk(state.weak == PixelState.WEAK)
+    SZ = weak_pk.numel()
+    K_w = _weak_budget(SZ, static.weak_budget_frac)
+    flat_idx, ok_k = _band_compact(weak_pk, K_w)
+    gidx = torch.clamp(flat_idx, max=SZ - 1)
+    af_k = anchor_fields_at(ctx_yzl, anchors, state.sel_views, ref_img,
+                            dyn.sigma_color, pk1, gidx)
+    dump = torch.zeros((1, V), device=ref_img.device)
+
+    def scatter_blend(centers, ck):
+        """Dense costs [S, H', W', V]: ``ck`` [S, K_w, V] at the compacted
+        pixels over ``centers`` elsewhere (empty entries are dropped)."""
+        S = centers.shape[0]
+        out = torch.cat([centers.reshape(S, SZ, V),
+                         dump.expand(S, 1, V)], dim=1)
+        out[:, flat_idx] = torch.where(ok_k[None, :, None], ck,
+                                       torch.zeros_like(ck))
+        return out[:, :SZ].reshape(centers.shape)
+
+    def deform_slots(slot_planes):
+        """Slot costs with the candidate-dependent anchor term; returns the
+        dense blended costs and the compacted anchor term."""
+        S = slot_planes.shape[0]
+        centers = ncc_cost_batch(ctx_yzl_c, slot_planes, parity=par)
+        pl_k = slot_planes.reshape(S, SZ, 4)[:, gidx]
+        at_k = anchor_slot_costs_from_ctx(ctx_yzl, pl_k, af_k, ok_k=ok_k)
+        center_k = centers.reshape(S, SZ, V)[:, gidx]
+        ck = torch.where(at_k.has_anchors,
+                         0.25 * center_k + 0.75 * at_k.cost, center_k)
+        return scatter_blend(centers, ck), at_k
+
+    # candidates: the first 8 anchors' planes (APD.cu:2768-2779)
+    a8_x = torch.clamp(anchors.coords[:8, ..., 0], 0, W - 1)
+    a8_y = torch.clamp(anchors.coords[:8, ..., 1], 0, H - 1)
+    idx8 = pk1(a8_y * W + a8_x, 1).to(torch.int64)         # [8, H', W']
+    cand_planes = state.plane.reshape(-1, 4)[idx8]         # [8, H', W', 4]
+    flags = pk1(anchors.valid[:8], 1)
+
+    xs_c, ys_c, rx_c, ry_c = pk(xs), pk(ys), pk(rx), pk(ry)
+    plane_cur = pk(state.plane)
+    sel_cur = pk(state.sel_views)
+    fit_c = pk(fit_plane)
+
+    # one batched deformable evaluation: 8 candidates + current + fit
+    slot_planes = torch.cat([cand_planes, plane_cur[None], fit_c[None]])
+    slot10, at10_k = deform_slots(slot_planes)
+    cost_array = slot10[:8]
+
+    # anchor-based view-selection prior (APD.cu:2788-2801)
+    sel_a8 = state.sel_views.reshape(-1, V)[idx8]          # [8, H', W', V]
+    prior = torch.sum(torch.where(
+        flags[..., None],
+        torch.where(sel_a8, 0.9, 0.1).to(torch.float32),
+        torch.zeros((), device=ref_img.device)), dim=0)
+
+    r = pk1(draws.uniform(p_view, (static.view_samples, H, W, 1)), 1)
+    view_weights, temp_sel, weight_norm = mhjvs(r, cost_array, flags, prior,
+                                                it)
+
+    if gctx is not None:
+        # missing anchors cost geom_factor * 3 (APD.cu:2857-2868)
+        g10 = _geom_batch(gctx, slot_planes, xs_c, ys_c, ref_cam,
+                          parity=par)
+        g8 = torch.where(flags[..., None], g10[:8],
+                         torch.full_like(g10[:8], 3.0))
+        cost_array = cost_array + dyn.geom_factor * g8
+    final_costs = weighted_cost(cost_array, view_weights[None],
+                                weight_norm[None])
+    cur_vec = slot10[8]
+    if gctx is not None:
+        cur_vec = cur_vec + dyn.geom_factor * g10[8]
+    cost0 = weighted_cost(cur_vec, view_weights, weight_norm)
+
+    min_idx = torch.argmin(final_costs, dim=0)
+    best_cost = take0(final_costs, min_idx)
+    best_plane = take0(cand_planes, min_idx)
+    best_flag = take0(flags, min_idx)
+    depth_before = depth_from_plane(best_plane, xs_c, ys_c, ref_cam)
+    adopt = (best_flag & (depth_before >= dyn.depth_min)
+             & (depth_before <= dyn.depth_max) & (best_cost < cost0))
+    plane_now = torch.where(adopt[..., None], best_plane, plane_cur)
+    cost_now = torch.where(adopt, best_cost, cost0)
+    sel_now = torch.where(adopt[..., None], temp_sel, sel_cur)
+
+    # fit-plane test (PlaneHypothesisRefinementWeak, APD.cu:1920-1950)
+    has_fit = torch.any(fit_c[..., :3] != 0, dim=-1)
+    fit_vec = slot10[9]
+    if gctx is not None:
+        fit_vec = fit_vec + dyn.geom_factor * g10[9]
+    fit_cost = weighted_cost(fit_vec, view_weights, weight_norm)
+    fit_depth = depth_from_plane(fit_c, xs_c, ys_c, ref_cam)
+    take_fit = (has_fit & (fit_depth >= dyn.depth_min)
+                & (fit_depth <= dyn.depth_max) & (fit_cost < cost_now))
+    plane_now = torch.where(take_fit[..., None], fit_c, plane_now)
+    cost_now = torch.where(take_fit, fit_cost, cost_now)
+
+    # 6-plane random refinement; the proposals reuse the CURRENT plane's
+    # anchor term (slot 8), as JAX does
+    cur_depth = depth_from_plane(plane_now, xs_c, ys_c, ref_cam)
+    ref_planes = refinement_planes(
+        draws, p_refine, plane_now[..., :3], cur_depth, sel_now, rx_c, ry_c,
+        xs_c, ys_c, ref_cam, src_cams, dyn.depth_min, dyn.depth_max,
+        full_hw=(H, W), pk=pk1)
+    ref_centers = ncc_cost_batch(ctx_yzl_c, ref_planes, parity=par)
+    center6_k = ref_centers.reshape(6, SZ, V)[:, gidx]
+    rk = torch.where(at10_k.has_anchors[8][None],
+                     0.25 * center6_k + 0.75 * at10_k.cost[8][None],
+                     center6_k)
+    ref_vec = scatter_blend(ref_centers, rk)
+    if gctx is not None:
+        ref_vec = ref_vec + dyn.geom_factor * _geom_batch(
+            gctx, ref_planes, xs_c, ys_c, ref_cam, parity=par)
+    ref_costs = weighted_cost(ref_vec, view_weights[None], weight_norm[None])
+    ref_depths = depth_from_plane(ref_planes, xs_c, ys_c, ref_cam)
+    ref_ok = (ref_depths >= dyn.depth_min) & (ref_depths <= dyn.depth_max)
+    ref_costs = torch.where(ref_ok, ref_costs,
+                            torch.full_like(ref_costs, float("inf")))
+    rmin = torch.argmin(ref_costs, dim=0)
+    rcost = take0(ref_costs, rmin)
+    rplane = take0(ref_planes, rmin)
+    take_ref = rcost < cost_now
+    plane_now = torch.where(take_ref[..., None], rplane, plane_now)
+    cost_now = torch.where(take_ref, rcost, cost_now)
+
+    if static.state == RunState.REFINE_INIT:
+        improved = cost_now < cost0 - 0.1
+        plane_new = torch.where(improved[..., None], plane_now, plane_cur)
+    else:
+        plane_new = plane_now
+
+    # re-cost with the strong full-window NCC for comparability
+    # (APD.cu:3072-3088)
+    final_vec = ncc_cost(ctx_c, plane_new, parity=par)
+    cost_final = weighted_cost(final_vec, view_weights, weight_norm)
+
+    if use_pk:
+        plane_new = unpack_parity(plane_new, color, state.plane)
+        cost_final = unpack_parity(cost_final, color, state.cost)
+        sel_now = unpack_parity(sel_now, color, state.sel_views)
+        view_weights = unpack_parity(view_weights, color,
+                                     state.view_weights)
+
+    mask = (parity == color) & (state.weak == PixelState.WEAK)
+    m1 = mask[..., None]
+    return state.replace(
+        plane=torch.where(m1, plane_new, state.plane),
+        cost=torch.where(mask, cost_final, state.cost),
+        sel_views=torch.where(m1, sel_now, state.sel_views),
+        view_weights=torch.where(m1, view_weights, state.view_weights),
+    )
+
+
+def _weak_overflow(weak, static: PMStatic) -> torch.Tensor:
+    """Weak pixels past the compaction budget (the larger of the two colors
+    on the packed grid), as an int32 scalar on the device: they fall back
+    to the center-window cost.  The weak set only shrinks within a pass, so
+    the count at its start bounds every iteration's."""
+    wk0 = weak == PixelState.WEAK
+    if static.cost_backend == "fused":
+        over = None
+        for color in (0, 1):
+            wpk = pack_parity(wk0, color)
+            o = torch.sum(wpk) - _weak_budget(wpk.numel(),
+                                              static.weak_budget_frac)
+            over = o if over is None else torch.maximum(over, o)
+    else:
+        over = torch.sum(wk0) - _weak_budget(wk0.numel(),
+                                             static.weak_budget_frac)
+    return torch.clamp(over, min=0).to(torch.int32)
+
+
 def run_pass(
     ref_img,                       # [H, W] grayscale 0..255
     src_imgs,                      # [V, H, W]
@@ -230,17 +496,20 @@ def run_pass(
     src_depths=None,               # [V, H, W] for geom
     radius_map=None,               # [H, W]
     edge=None,                     # [H, W] edge mask
+    label=None,                    # [H, W] int labels
     device=None,
 ) -> PassOutput:
     """Run one PatchMatch pass for a reference view on ``device`` (the card
     unless the caller asks for the CPU).  ``draws`` returns its numbers on
     that device."""
-    if static.use_APD:
-        raise NotImplementedError(
-            "use_APD (the weak-pixel machinery of rounds >= 1) belongs to "
-            "the APD slice of the port")
     if static.debug_dumps:
-        raise NotImplementedError("debug dumps belong to a later slice")
+        raise NotImplementedError("debug dumps belong to the priors slice "
+                                  "of the port (ROADMAP.md, Queue 1)")
+    if static.use_APD and (static.anchor_taps > 1 or static.exact_deformable):
+        raise NotImplementedError(
+            "the sparse-patch tap mode of the anchor term (anchor_taps > 1) "
+            "and the exact deformable oracle (exact_deformable) are not "
+            "ported yet (ROADMAP.md, Queue 1)")
     dev = resolve_device(device)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     ref_img = f32(ref_img)
@@ -282,13 +551,36 @@ def run_pass(
               else torch.zeros((H, W), device=dev))
 
     root = ()
-    k_init, k_loop = split(root, 3, 0), split(root, 3, 2)
+    k_init, k_weak, k_loop = (split(root, 3, i) for i in range(3))
 
     # the edge-adaptive strong branch runs whenever an edge map exists
     edge_dist = None
     if static.use_edge and edge is not None:
         edge = torch.as_tensor(edge, device=dev).to(torch.bool)
         edge_dist = edge_ray_distance(edge)
+    if label is not None:
+        label = torch.as_tensor(label, device=dev)
+
+    # ---- weak-machinery precomputation ----
+    use_apd = static.use_APD
+    ctx_yzl = anchors = complexity = label_dist = None
+    ctx_yzl_pks = (None, None)
+    if use_apd:
+        ctx_yzl = build_cost_context(
+            ref_img, src_imgs, ref_cam, src_cams,
+            sigma_spatial=dyn.sigma_spatial, sigma_color=dyn.sigma_color,
+            strong_radius=static.strong_radius, backend=static.cost_backend,
+            color_only_weights=True)
+        if static.cost_backend == "fused":
+            ctx_yzl_pks = (pack_ctx(ctx_yzl, 0), pack_ctx(ctx_yzl, 1))
+        if static.use_edge and edge is not None:
+            complexity = edge_complexity(edge, static.strong_radius)
+        if static.use_label and label is not None:
+            label_dist = label_boundary_distance(label)
+        if static.state == RunState.REFINE_INIT and static.use_detail:
+            weak = demote_detail(
+                weak, edge if static.use_edge and edge is not None else None,
+                label if static.use_label and label is not None else None)
 
     # ---- initialization (RandomInitialization, APD.cu:1273-1309) ----
     if static.state == RunState.FIRST_INIT:
@@ -312,6 +604,24 @@ def run_pass(
         plane = plane_from_world(f32(init_plane_world), xs, ys, ref_cam)
         cost, sel_views = _initial_cost_refine(ctx, plane, sel_views)
 
+    # anchor generation (GenNeighbours + NeigbourUpdate)
+    weak_overflow = None
+    if use_apd:
+        depth_range = float(np.float32(dyn.depth_max)
+                            - np.float32(dyn.depth_min))
+        anchors = find_anchors(
+            weak, plane, ref_cam, draws, k_weak,
+            rotate_time=static.rotate_time,
+            edge=edge if static.use_edge else None, complexity=complexity,
+            ransac_threshold=dyn.ransac_threshold, depth_range=depth_range,
+            use_limit=static.use_limit,
+            label=label if static.use_label else None,
+            label_dist=label_dist)
+        weak = torch.where((weak == PixelState.WEAK) & ~anchors.reliable,
+                           torch.full_like(weak, int(PixelState.UNKNOWN)),
+                           weak)
+        weak_overflow = _weak_overflow(weak, static)
+
     state = PMState(plane=plane, cost=cost, sel_views=sel_views,
                     view_weights=torch.zeros((H, W, V), device=dev),
                     weak=weak, radius=radius)
@@ -324,6 +634,21 @@ def run_pass(
                 state, color, it, path_it, draws, ctx, ctx_pks[color],
                 ref_cam, src_cams, static, dyn, xs, ys, rx, ry, ray, parity,
                 edge=edge, edge_dist=edge_dist)
+        if use_apd:
+            fit_plane, new_radius = ransac_fit_plane(
+                anchors, state.plane, state.weak, ref_cam, draws,
+                fold_in(path_it, 3), use_radius=static.use_radius,
+                strong_radius=static.strong_radius, edge_dist=edge_dist,
+                label_dist=label_dist)
+            if static.use_radius and new_radius is not None:
+                state = state.replace(radius=torch.where(
+                    state.weak == PixelState.WEAK, new_radius, state.radius))
+            for color in (0, 1):
+                state = _propagate_color_weak(
+                    state, anchors, fit_plane, color, it, path_it, draws,
+                    ctx, ctx_pks[color], ctx_yzl, ctx_yzl_pks[color], gctx,
+                    ref_img, ref_cam, src_cams, static, dyn, xs, ys, rx, ry,
+                    parity)
 
     # ---- post: depth/normal extraction + filters ----
     depth = depth_from_plane(state.plane, xs, ys, ref_cam)
@@ -352,4 +677,5 @@ def run_pass(
     return PassOutput(depth=depth, normal_world=normal_world,
                       cost=state.cost, weak=weak_new,
                       sel_views=state.sel_views,
-                      view_weights=state.view_weights, radius=radius_out)
+                      view_weights=state.view_weights, radius=radius_out,
+                      weak_overflow=weak_overflow)

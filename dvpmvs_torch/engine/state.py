@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -41,3 +42,6 @@ class PassOutput:
     sel_views: torch.Tensor      # [H, W, V] bool
     view_weights: torch.Tensor   # [H, W, V]
     radius: torch.Tensor         # [H, W]
+    # passes with use_APD: weak pixels past the compaction budget at the
+    # start of the pass (int32 scalar, 0 when all fit); None otherwise
+    weak_overflow: Optional[torch.Tensor] = None

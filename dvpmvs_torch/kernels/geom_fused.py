@@ -3,21 +3,26 @@
 
 ``geom_cost`` scores K candidate depth fields [K, H, W] against the source
 depth maps: per view -> [K, H, W, V], or folded with per-pixel view weights
--> [K, H, W].  It launches ``csrc/geom.cu`` for tensors on the card and runs
-``geom_cost_plain`` (``geom.geom_consistency_cost`` over candidate chunks)
-for tensors on the CPU.  The checkerboard-parity per-view mode of the TPU
-kernel belongs to the weak-pixel (APD) slice of the port.
+-> [K, H, W].  With ``parity`` 0/1 the fields live on one checkerboard color
+[K, H, ceil(W/2)] (evaluation pixel (y, i) at x = 2 i + (y + parity) % 2,
+engine/packing.py) and the result is per view [K, H, ceil(W/2), V]; the
+source depth maps stay full resolution.  It launches ``csrc/geom.cu`` for
+tensors on the card and runs ``geom_cost_plain``
+(``geom.geom_consistency_cost`` over candidate chunks) for tensors on the
+CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 
 from . import _build
 from .geom import GeomContext, geom_consistency_cost
+from .ncc_fused import eval_coords
 
 _NAME = "geom"
 
@@ -29,10 +34,25 @@ def _cam_rows(K, R, t, c) -> torch.Tensor:
                      dim=-1).to(torch.float32).contiguous()
 
 
+def parity_context(gctx: GeomContext, parity: int) -> GeomContext:
+    """``gctx`` with its per-pixel coordinate fields on one checkerboard
+    color (x = 2 i + (y + parity) % 2, computed, not packed, so that the
+    padding column of an odd width sits at x = W as in the kernel)."""
+    H, W = gctx.xs.shape
+    xs, ys = eval_coords(H, (W + 1) // 2, parity, gctx.xs.device)
+    ref_K = gctx.ref_K
+    return dataclasses.replace(gctx, xs=xs, ys=ys,
+                               rx=(xs - ref_K[0, 2]) / ref_K[0, 0],
+                               ry=(ys - ref_K[1, 2]) / ref_K[1, 1])
+
+
 def geom_cost_plain(gctx: GeomContext, depth_stack: torch.Tensor,
                     vweights: Optional[torch.Tensor] = None,
-                    fold: bool = False, chunk: int = 8) -> torch.Tensor:
+                    fold: bool = False, chunk: int = 8,
+                    parity: Optional[int] = None) -> torch.Tensor:
     """The plain version of K3: same arguments, same result."""
+    if parity is not None:
+        gctx = parity_context(gctx, parity)
     outs = []
     for k0 in range(0, depth_stack.shape[0], chunk):
         c = geom_consistency_cost(gctx, depth_stack[k0:k0 + chunk])
@@ -47,20 +67,28 @@ def geom_cost_plain(gctx: GeomContext, depth_stack: torch.Tensor,
 
 def geom_cost(gctx: GeomContext, depth_stack: torch.Tensor,
               vweights: Optional[torch.Tensor] = None,
-              fold: bool = False) -> torch.Tensor:
-    """Geom costs of K candidate depth fields depth_stack [K, H, W].
+              fold: bool = False, parity: Optional[int] = None
+              ) -> torch.Tensor:
+    """Geom costs of K candidate depth fields depth_stack [K, H, W'].
 
-    Returns [K, H, W, V], or with ``fold`` the ``vweights`` ([H, W, V])
-    weighted sum over views [K, H, W]."""
+    Returns [K, H, W', V], or with ``fold`` the ``vweights`` ([H, W, V])
+    weighted sum over views [K, H, W].  W' is W, or ceil(W/2) with
+    ``parity`` 0/1 (one checkerboard color; per view only)."""
     V, H, W = gctx.src_depths.shape
     K = depth_stack.shape[0]
-    if tuple(depth_stack.shape[1:]) != (H, W):
-        raise ValueError("geom_cost: depth_stack must be [K, H, W] at the "
-                         "source depth resolution")
+    if parity not in (None, 0, 1):
+        raise ValueError("geom_cost: parity must be None, 0 or 1")
+    if parity is not None and fold:
+        raise ValueError("geom_cost: the parity mode is per view only")
+    Wp = W if parity is None else (W + 1) // 2
+    if tuple(depth_stack.shape[1:]) != (H, Wp):
+        raise ValueError(f"geom_cost: depth_stack must be [K, {H}, {Wp}], "
+                         f"got {tuple(depth_stack.shape)}")
     if fold and (vweights is None or tuple(vweights.shape) != (H, W, V)):
         raise ValueError("geom_cost: fold needs vweights [H, W, V]")
     if depth_stack.device.type == "cpu":
-        return geom_cost_plain(gctx, depth_stack, vweights, fold)
+        return geom_cost_plain(gctx, depth_stack, vweights, fold,
+                               parity=parity)
     if depth_stack.device.type != "cuda":
         raise ValueError(f"geom_cost: unsupported device "
                          f"{depth_stack.device}")
@@ -71,14 +99,16 @@ def geom_cost(gctx: GeomContext, depth_stack: torch.Tensor,
     vw = torch.movedim(vweights, -1, 0).contiguous() if fold else None
     _build.require_cuda_inputs(_NAME, [depths, gctx.src_depths, ref, srcs,
                                        vw], depths.device)
-    shape = (K, H, W) if fold else (K, H, W, V)
+    shape = (K, H, Wp) if fold else (K, H, Wp, V)
     out = torch.empty(shape, dtype=torch.float32, device=depths.device)
     fn = _build.library(_NAME).launch_geom
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     P = _build.ptr
     err = fn(P(depths), P(gctx.src_depths), P(ref), P(srcs), P(vw), P(out),
-             K, V, H, W, ctypes.c_void_p(_build.stream_ptr(depths)))
-    _build.check(err, _NAME)
+             K, V, H, W, Wp, -1 if parity is None else int(parity),
+             ctypes.c_void_p(_build.stream_ptr(depths)))
+    _build.check(err, _NAME, "fold" if fold else
+                 "per view" if parity is None else "parity")
     return out

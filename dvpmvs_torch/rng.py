@@ -18,6 +18,18 @@ A key path is a tuple of steps from the pass key: ``("split", n, i)`` is
   refinement     split(3)[2] / fold_in(it) / fold_in(color) / split(2)[1] /
                  split(5)[0..4]                              (refine.py:42-51)
 
+and, in the passes with the weak-pixel machinery (``use_APD``):
+
+  anchor bypass  split(3)[1]                  uniform [H, W]  (weak.py:397)
+  anchor triads  split(3)[1] / fold_in(1)     randint [50, 3, H, W] in
+                                              [0, D)          (weak.py:531)
+  fit triads     split(3)[2] / fold_in(it) / fold_in(3)
+                                              randint [50, 3, H, W] in
+                                              [0, A)          (weak.py:717)
+  weak MHJVS     split(3)[2] / fold_in(it) / fold_in(color) / fold_in(7) /
+                 split(2)[0]                  (patchmatch.py:356-357)
+  weak refine    ... / fold_in(7) / split(2)[1] / split(5)[0..4]
+
 ``TorchDraws`` is the production source: one counter-based generator per
 draw (Philox on the card), seeded from the run seed and the key path, so a
 draw does not depend on the order of the others.  Tests supply a source that
@@ -30,6 +42,8 @@ import hashlib
 from typing import Protocol, Sequence, Tuple
 
 import torch
+
+from . import resolve_device
 
 KeyPath = Tuple[tuple, ...]
 
@@ -50,13 +64,19 @@ class DrawSource(Protocol):
         """float32 uniform numbers in [minval, maxval) of ``shape``."""
         ...
 
+    def randint(self, path: KeyPath, shape: Sequence[int], minval: int,
+                maxval: int) -> torch.Tensor:
+        """int32 integers in [minval, maxval) of ``shape``."""
+        ...
+
 
 class TorchDraws:
-    """Production draw source on ``device`` (Philox on the card)."""
+    """Production draw source on ``device`` (the card unless the caller
+    asks for another; Philox there)."""
 
-    def __init__(self, seed: int, device="cpu"):
+    def __init__(self, seed: int, device=None):
         self.seed = int(seed)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _path_seed(self, path: KeyPath) -> int:
         digest = hashlib.blake2b(repr((self.seed, tuple(path))).encode(),
@@ -70,3 +90,13 @@ class TorchDraws:
         u = torch.rand(tuple(shape), generator=gen, device=self.device,
                        dtype=torch.float32)
         return torch.clamp(u * (maxval - minval) + minval, min=minval)
+
+    def randint(self, path: KeyPath, shape: Sequence[int], minval: int,
+                maxval: int) -> torch.Tensor:
+        # drawn directly in int32: an anchor-triad draw at 608 x 800 is
+        # 73 M numbers (292 MB in int32, twice that in int64)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._path_seed(path))
+        return torch.randint(int(minval), int(maxval), tuple(shape),
+                             generator=gen, device=self.device,
+                             dtype=torch.int32)

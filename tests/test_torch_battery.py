@@ -32,7 +32,7 @@ def test_fused_backend_meets_engine_floors(name):
                  max_iterations=3, cost_backend="fused"),
         PMDynamic.create(depth_min=float(ref.depth_min),
                          depth_max=float(ref.depth_max)),
-        TorchDraws(0), device="cpu")
+        TorchDraws(0, device="cpu"), device="cpu")
     # on the CPU every kernel runs as its plain version: nothing launches
     assert all(n == 0 for n in _build.LAUNCHES.values())
     m = 8

@@ -1,0 +1,98 @@
+"""The port's weak-pixel machinery on the weak-structure battery of
+tests/test_weak_battery.py: the "disc" and "band" 64x96 scenes, V=3, the
+textureless region injected as WEAK after FIRST_INIT, then REFINE_INIT and
+REFINE_ITER with use_APD (two iterations each, rotate_time 2, no edges or
+labels, geometric consistency against the ground-truth source depths), on
+the port's "fused" backend on the CPU with the production draw source.  The
+JAX battery itself is marked slow; this file computes only the port's
+numbers.
+
+The floors are what the JAX package gives on these scenes today, less a
+margin, and the weak passes must recover accuracy over FIRST_INIT.  The
+default-mode floors of tests/test_weak_battery.py (0.55 disc, 0.60 band)
+date from an earlier state of the JAX package: its own default mode,
+``python -m tests.test_weak_battery disc default`` (and ``band``), now
+gives 0.372 and 0.380 on the CPU.  The port with the same JAX draws on
+the exact backend gives 0.365 on "disc".
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import test_torch_support  # noqa: F401  (caps torch's threads)
+from test_weak_battery import NV, SCENES, V, _region_mask
+
+from dvpmvs.utils.synthetic import make_scene
+
+from dvpmvs_torch import convert
+from dvpmvs_torch.config import PMDynamic, PMStatic, PixelState, RunState
+from dvpmvs_torch.engine import run_pass
+from dvpmvs_torch.geometry import stack_cameras
+from dvpmvs_torch.kernels import _build
+from dvpmvs_torch.rng import TorchDraws
+
+# region acc2 of the JAX package's default mode today (see above), and the
+# margin below it that the port's own draws must stay within
+JAX_TODAY = {"disc": 0.372, "band": 0.380}
+MARGIN = 0.07
+RECOVERY = 0.05
+
+
+def _region_acc(depth, gt, region):
+    rel = np.abs(depth - gt) / np.maximum(gt, 1e-6)
+    return float(((rel < 0.02) & (depth > 0) & region).sum()
+                 / max(int(region.sum()), 1))
+
+
+@pytest.mark.parametrize("name", ["disc", "band"])
+def test_fused_weak_passes_meet_battery_floors(name):
+    """Measured: disc 0.399 (0.248 after FIRST_INIT), band 0.342 (0.262)
+    over the region."""
+    spec = SCENES[name]
+    dims, kw = spec["dims"], spec["kw"]
+    region = _region_mask(dims, kw)
+    scene = make_scene(num_views=NV, height=dims[0], width=dims[1], **kw)
+    cams = [convert.camera(c, device="cpu") for c in scene.cameras]
+    ref, src = cams[0], stack_cameras(cams[1:])
+    ri, si = scene.images[0], scene.images[1:]
+    dyn = PMDynamic.create(depth_min=float(ref.depth_min),
+                           depth_max=float(ref.depth_max))
+    base = dict(num_src=V, cost_backend="fused", rotate_time=2,
+                use_edge=False, use_label=False, max_iterations=2)
+    _build.reset_launches()
+
+    first = run_pass(ri, si, ref, src,
+                     PMStatic(state=RunState.FIRST_INIT, **base), dyn,
+                     TorchDraws(0, device="cpu"), device="cpu")
+    weak = torch.where(torch.as_tensor(region),
+                       torch.full_like(first.weak, int(PixelState.WEAK)),
+                       first.weak)
+    weak = torch.where((weak == PixelState.WEAK)
+                       & ~torch.as_tensor(region),
+                       torch.full_like(weak, int(PixelState.STRONG)), weak)
+
+    def init(o):
+        return dict(init_plane_world=torch.cat(
+            [o.normal_world, o.depth[..., None]], -1),
+            init_sel_views=o.sel_views, init_weak=weak)
+
+    mid = run_pass(ri, si, ref, src,
+                   PMStatic(state=RunState.REFINE_INIT, use_APD=True, **base),
+                   dyn, TorchDraws(1, device="cpu"), device="cpu",
+                   **init(first))
+    out = run_pass(ri, si, ref, src,
+                   PMStatic(state=RunState.REFINE_ITER, use_APD=True,
+                            geom_consistency=True, **base),
+                   dyn, TorchDraws(2, device="cpu"), device="cpu",
+                   src_depths=scene.gt_depth[1:], **init(mid))
+    # on the CPU every kernel runs as its plain version: nothing launches
+    assert all(n == 0 for n in _build.LAUNCHES.values())
+    assert int(out.weak_overflow) == 0
+    gt = scene.gt_depth[0]
+    acc0 = _region_acc(first.depth.numpy(), gt, region)
+    acc = _region_acc(out.depth.numpy(), gt, region)
+    print(f"{name}: region acc2 {acc:.3f} (after FIRST_INIT {acc0:.3f}, "
+          f"{int(region.sum())} px)")
+    assert acc >= JAX_TODAY[name] - MARGIN, (name, acc)
+    assert acc >= acc0 + RECOVERY, (name, acc0, acc)

@@ -18,7 +18,8 @@ import torch
 
 from dvpmvs_torch.engine.packing import pack_ctx, pack_parity
 from dvpmvs_torch.geometry import stack_cameras
-from dvpmvs_torch.kernels import _build, geom_fused, ncc_fused, sweep_fused
+from dvpmvs_torch.kernels import (_build, anchor_fused, geom_fused,
+                                  ncc_fused, sweep_fused)
 from dvpmvs_torch.kernels.geom import build_geom_context
 from dvpmvs_torch.kernels.ncc import _grid, build_cost_context
 from dvpmvs_torch.kernels.sampling import plane_from_normal_depth
@@ -115,3 +116,87 @@ def test_geom_kernel_matches_plain(card, fold):
     kw = dict(vweights=vw if fold else None, fold=fold)
     got = geom_fused.geom_cost(gctx, dstack, **kw)
     _agree(got, geom_fused.geom_cost_plain(gctx, dstack, **kw))
+
+
+@pytest.mark.parametrize("color", [0, 1])
+def test_geom_parity_kernel_matches_plain(card, color):
+    c = card
+    src_depths = torch.as_tensor(c["scene"].gt_depth[1:], device=c["dev"])
+    gctx = build_geom_context(src_depths, c["ref"], c["src"])
+    ks = torch.linspace(0.9, 1.1, 5, device=c["dev"])
+    dstack = (pack_parity(c["depth"], color)[None]
+              * ks[:, None, None]).contiguous()
+    before = _build.MODE_LAUNCHES.get("geom/parity", 0)
+    got = geom_fused.geom_cost(gctx, dstack, parity=color)
+    assert _build.MODE_LAUNCHES["geom/parity"] == before + 1
+    assert tuple(got.shape) == (5, H, (W + 1) // 2, V)
+    _agree(got, geom_fused.geom_cost_plain(gctx, dstack, parity=color))
+
+
+@pytest.mark.parametrize("K", [700, 333])
+def test_anchor_kernel_matches_plain(card, K):
+    """Random anchors over the image, 10 slot planes near the ground
+    truth, views unselected at random and some anchors invalid."""
+    c = card
+    A, S = 11, 10
+    g = torch.Generator(device=c["dev"]).manual_seed(K)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=c["dev"])
+    ax = (rand(A, K) * W).floor().to(torch.int32)
+    ay = (rand(A, K) * H).floor().to(torch.int32)
+    ref = c["ref"]
+    rax = (ax.float() - ref.cx) / ref.fx
+    ray = (ay.float() - ref.cy) / ref.fy
+    ref_a = c["img"][0].reshape(-1)[(ay * W + ax).long()]
+    w_col = torch.exp(-torch.abs(ref_a - 255.0 * rand(A, K)) / 18.0)
+    vbits = (rand(A, K) < 0.85).to(torch.int32) * (
+        (rand(A, K) < 0.9).to(torch.int32) | 2 * (rand(A, K) < 0.9).to(
+            torch.int32))
+    pix = (rand(S, K) * H * W).floor().long()
+    planes = c["planes"][0].reshape(-1, 4)[pix]
+    planes[..., 3] *= 1.0 + 0.1 * (rand(S, K) - 0.5)
+    ctx = build_cost_context(c["img"][0], c["img"][1:], c["ref"], c["src"],
+                             5.0, 3.0, backend="fused",
+                             color_only_weights=True)
+    args = (ctx.src_imgs, ctx.M, ctx.b, ctx.src_wh,
+            anchor_fused.slot_q(planes), rax.contiguous(), ray.contiguous(),
+            ref_a.contiguous(), w_col.contiguous(), vbits.contiguous())
+    before = _build.LAUNCHES["anchor"]
+    got = anchor_fused.anchor_slot_costs(*args)
+    assert _build.LAUNCHES["anchor"] == before + 1
+    want = anchor_fused.anchor_slot_costs_plain(*args)
+    assert torch.equal(got.has_anchors, want.has_anchors)
+    _agree(got.cost, want.cost)
+    assert float((got.cost < 2.0).float().mean()) > 0.3
+
+
+def test_apd_pass_with_a_label_map_on_the_card(card):
+    """REFINE_ITER with use_APD, geometric consistency and a label map,
+    on the card: finite depths, and K4 and K3's parity mode launched."""
+    from dvpmvs_torch.config import PixelState, PMDynamic, PMStatic, RunState
+    from dvpmvs_torch.engine import run_pass
+    from dvpmvs_torch.rng import TorchDraws
+    c = card
+    scene, dev = c["scene"], c["dev"]
+    dyn = PMDynamic.create(depth_min=float(c["ref"].depth_min),
+                           depth_max=float(c["ref"].depth_max))
+    st = PMStatic(state=RunState.REFINE_ITER, num_src=V, max_iterations=1,
+                  cost_backend="fused", use_APD=True, geom_consistency=True,
+                  rotate_time=2, use_label=True)
+    xs, ys = _grid(H, W, dev)
+    weak = torch.full((H, W), int(PixelState.STRONG), dtype=torch.int8,
+                      device=dev)
+    weak[10:30, 40:120] = int(PixelState.WEAK)
+    label = ((xs // 20) + 8 * (ys // 16) + 1).to(torch.int32)
+    sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
+    _build.reset_launches()
+    out = run_pass(
+        scene.images[0], scene.images[1:], c["ref"], c["src"], st, dyn,
+        TorchDraws(0), init_plane_world=torch.cat(
+            [torch.as_tensor(scene.gt_normal[0], device=dev),
+             c["depth"][..., None]], -1),
+        init_sel_views=sel, init_weak=weak,
+        src_depths=scene.gt_depth[1:], label=label)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.depth).all())
+    assert _build.LAUNCHES["anchor"] == 2
+    assert _build.MODE_LAUNCHES["geom/parity"] == 4

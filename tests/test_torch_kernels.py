@@ -308,4 +308,5 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch(setup):
     _, ctx_t = _ctxs(setup, "exact")
     ncc_fused.fused_cost_from_ctx(
         ctx_t, torch.as_tensor(np.array(setup["planes"][:1])))
-    assert _build.LAUNCHES == {"ncc_fused": 0, "sweep": 0, "geom": 0}
+    assert _build.LAUNCHES == {name: 0 for name in _build.SOURCES}
+    assert set(_build.SOURCES) == {"ncc_fused", "sweep", "geom", "anchor"}

@@ -337,12 +337,14 @@ def test_median_filter_matches_jax():
 # ------------------------------------------------------------ draw source --
 
 def test_torch_draws_are_keyed_by_path():
-    d = TorchDraws(5)
+    d = TorchDraws(5, device="cpu")
     p = fold_in(split((), 3, 2), 1)
     a = d.uniform(p, (4, 6), -2.0, 3.0)
-    assert torch.equal(a, TorchDraws(5).uniform(p, (4, 6), -2.0, 3.0))
+    assert torch.equal(a, TorchDraws(5, device="cpu").uniform(p, (4, 6),
+                                                              -2.0, 3.0))
     assert not torch.equal(a, d.uniform(split(p, 2, 0), (4, 6), -2.0, 3.0))
-    assert not torch.equal(a, TorchDraws(6).uniform(p, (4, 6), -2.0, 3.0))
+    assert not torch.equal(a, TorchDraws(6, device="cpu").uniform(
+        p, (4, 6), -2.0, 3.0))
     assert a.dtype == torch.float32
     assert float(a.min()) >= -2.0 and float(a.max()) < 3.0
 
@@ -359,6 +361,26 @@ def test_entry_points_default_to_the_card(monkeypatch):
         convert.camera({"K": np.eye(3), "R": np.eye(3), "t": np.zeros(3),
                         "depth_min": 1.0, "depth_max": 2.0})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_torch_draws_default_to_the_card(monkeypatch):
+    """A draw source built without a device draws on the card, so without
+    one it raises unless asked for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchDraws(0)
+    assert TorchDraws(0, device="cpu").device == torch.device("cpu")
+
+
+def test_torch_draws_randint_is_int32_in_range_and_keyed():
+    d = TorchDraws(3, device="cpu")
+    p = fold_in(split((), 3, 1), 1)
+    a = d.randint(p, (50, 3, 4, 5), 0, 7)
+    assert a.dtype == torch.int32 and tuple(a.shape) == (50, 3, 4, 5)
+    assert int(a.min()) >= 0 and int(a.max()) == 6
+    assert torch.equal(a, TorchDraws(3, device="cpu").randint(
+        p, (50, 3, 4, 5), 0, 7))
+    assert not torch.equal(a, d.randint(fold_in(p, 2), (50, 3, 4, 5), 0, 7))
 
 
 # ------------------------------------------------------------------ guard --

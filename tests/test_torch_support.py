@@ -56,6 +56,11 @@ class JaxDraws:
                                minval=minval, maxval=maxval)
         return torch.from_numpy(np.array(u))
 
+    def randint(self, path, shape, minval, maxval):
+        r = jax.random.randint(self.derive(path), tuple(shape), minval,
+                               maxval)
+        return torch.from_numpy(np.array(r).astype(np.int32))
+
 
 def t_camera(jcam):
     """A JAX Camera (single or stacked) as a port Camera on the CPU."""
