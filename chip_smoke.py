@@ -8,8 +8,12 @@
    parallel) into build/dvpmvs_torch/;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it (608x800, V=10; K4 at the
-   compacted weak pixels of one color of a 30 % weak mask, K_w = 121,600),
-   and times both with CUDA events;
+   compacted weak pixels of one color of a 30 % weak mask, K_w = 121,600,
+   in its single-tap mode and in its tap mode with two sparse-patch taps;
+   K5 on the ground-truth plane field; the seven K6 gather kernels at their
+   own shapes), and times both with CUDA events; K5's row also times
+   torch.nn.functional.grid_sample on the same coordinates, which computes
+   its bilinear sample (the port never calls it);
 4. path phase, round 0: runs the main path of pyramid round 0 through the
    port's entry point run_pass with the "fused" backend: FIRST_INIT on
    views 0-4 of a synthetic 608x800 scene (10 replicated source views,
@@ -24,14 +28,25 @@
    pass had weak pixels, and that K4 and K3's parity mode were launched;
    then the same chain on a scene with a textureless band, whose weak
    region's acc2 it prints before and after;
-6. with ``--profile`` only: runs each pass once more under torch.profiler
+6. path phase, the "warp" cost backend: FIRST_INIT of view 0 from random
+   planes (acc2 printed, no floor: warp mode converges slowly from random
+   planes), then REFINE_ITER from the "fused" FIRST_INIT outputs in round
+   0's configuration (radius map, geometric consistency); checks acc2 of
+   REFINE_ITER, that K5 ran once for every plane the backend evaluated in
+   both passes, and that K3's per-view mode ran in the sweeps;
+7. path phase, the sparse-patch taps: the APD REFINE_ITER of step 5 with
+   anchor_taps=3 on the bench scene (acc2 floor) and on the band scene (its
+   region's acc2 beside step 5's); checks that K4's tap mode was launched;
+8. with ``--profile`` only: runs each pass once more under torch.profiler
    and prints the device's busy time and the device time by kernel, and
    the same for the anchor search and one RANSAC fit on their own;
-6. prints one JSON line with the kernels' numbers, the card line, and as
+9. prints one JSON line with the kernels' numbers, the card line, and as
    the last line {"ok": true, "device": {...}}.
 
-Any failure raises, so the script exits non-zero before the last line.  It
-needs a CUDA device and the repository's dvpmvs_torch package beside it.
+Every path step resets the launch counts just before it and reads them just
+after.  Any failure raises, so the script exits non-zero before the last
+line.  It needs a CUDA device and the repository's dvpmvs_torch package
+beside it.
 """
 
 from __future__ import annotations
@@ -64,24 +79,45 @@ K3_OPS_PER_VIEW = 110        # project, lookup, back-project, re-project
 K4_OPS_PER_ANCHOR = 70
 K4_OPS_PER_GROUP = 25        # the group's NCC from its moments
 K4_OPS_PER_VIEW = 10         # the groups' mean and the out-of-view blend
+# K4's tap mode, per tap of an anchor: unpack 10, ray offset 4, then the
+# center's warp, sample and moments without the counts (~66)
+K4_OPS_PER_TAP = 80
+N_TAPS = 2                   # anchor_taps=3: two taps per anchor
 WEAK_FRAC = 0.3              # the random weak share of the K4 inputs
 S_SLOTS, N_ANCHORS = 10, 11
+# K5 per (view, pixel): base rows 18, guard 2, divides 2, in-view 5, clamps
+# 4, floors 2, fractions 2, bilinear blend 11; per pixel: ray 4, s 5
+K5_OPS_PER_VIEW = 46
+K5_OPS_PER_PIXEL = 9
+# K6 per step (one tap, with its 8 inner steps for the prims) and pixel,
+# counted from each kernel: index arithmetic, clamps, byte unpacking, and for
+# quad8 / p2x5 the f32 blend (integer operations counted at the fp32 rate:
+# an optimistic bound).  prim_repeat's 8 inner adds of one word fold into a
+# shift and an add.
+K6_OPS_PER_STEP = {"quad8": 41, "p2x5": 47, "prim_roll": 51,
+                   "prim_gather": 51, "prim_select": 29, "prim_repeat": 6,
+                   "prim_vshift": 43}
 
 REPLACES = {
     "ncc_fused": "dvpmvs/kernels/ncc_fused.py:864",
     "sweep": "dvpmvs/kernels/sweep_pallas.py:286",
     "geom": "dvpmvs/kernels/geom_pallas.py:208",
     "anchor": "dvpmvs/kernels/anchor_pallas.py:394",
+    "warp": "dvpmvs/kernels/sweep_pallas.py:408",
+    "gather_bench": "scripts/bench_gather_variants.py:204",
 }
 SOURCES = {
     "ncc_fused": "dvpmvs_torch/csrc/ncc_fused.cu",
     "sweep": "dvpmvs_torch/csrc/sweep.cu",
     "geom": "dvpmvs_torch/csrc/geom.cu",
     "anchor": "dvpmvs_torch/csrc/anchor.cu",
+    "warp": "dvpmvs_torch/csrc/warp.cu",
+    "gather_bench": "dvpmvs_torch/csrc/gather_bench.cu",
 }
-# the launch counters read by the kernels of the weak-pixel passes (the
-# others are read from the round-0 path)
-APD_COUNTERS = ("anchor", "geom/parity")
+# which run's launch counts each counter is read from: the round-0 path
+# unless listed (K6 lies on no path: its own timing run)
+COUNTER_RUN = {"anchor/single tap": "apd", "geom/parity": "apd",
+               "warp": "warp", "anchor/taps": "taps"}
 
 
 def card_line() -> str:
@@ -93,17 +129,11 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean CUDA-event time of fn() over reps launches (after one warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean CUDA-event time of fn() over reps launches (after one warm-up),
+    with the launches queued behind a spin of the card
+    (``gather_variants.cuda_ms``): device time, not the host's launch rate."""
+    from dvpmvs_torch.bench.gather_variants import cuda_ms as timed_ms
+    return timed_ms(fn, reps)
 
 
 def compare(torch, got, want, bound: float, share_max: float, what: str):
@@ -193,7 +223,7 @@ def kernel_phase(torch, dev, scene, reps):
         nbytes = 4 * (B * P * 4 + 2 * 36 * P + 3 * P + V * H * W
                       + (P if c.has_radius_map else 0) + B * P * V)
         rows.append(("ncc_fused", "ncc_fused", label, err, ms, plain,
-                     *bound_ms(ops, nbytes)))
+                     *bound_ms(ops, nbytes), None))
 
     sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
     baseline, _ = _mean_selected_baseline(sel, ref_cam, src_cams)
@@ -221,7 +251,7 @@ def kernel_phase(torch, dev, scene, reps):
         nbytes = 4 * (2 * H * W + V * H * W + 72 * H * W + 3 * H * W
                       + V * H * W + K * H * W)
         rows.append(("sweep", "sweep", label, err, ms, plain,
-                     *bound_ms(ops, nbytes)))
+                     *bound_ms(ops, nbytes), None))
 
     src_depths = torch.as_tensor(scene.gt_depth[reps], device=dev)
     gctx = build_geom_context(src_depths, ref_cam, src_cams)
@@ -245,7 +275,7 @@ def kernel_phase(torch, dev, scene, reps):
         nbytes = 4 * (K * H * W + V * H * W
                       + (V * H * W + K * H * W if fold else K * H * W * V))
         rows.append(("geom", "geom/fold" if fold else "geom/per view",
-                     label, err, ms, plain, *bound_ms(ops, nbytes)))
+                     label, err, ms, plain, *bound_ms(ops, nbytes), None))
 
     # K3's parity mode: the geom term of the weak half-iterations (10 slot
     # planes, 6 refinement proposals) on one checkerboard color
@@ -268,10 +298,12 @@ def kernel_phase(torch, dev, scene, reps):
             ops = K * H * Wp * V * K3_OPS_PER_VIEW
             nbytes = 4 * (K * H * Wp + V * H * W + K * H * Wp * V)
             rows.append(("geom", "geom/parity", label, err, ms, plain,
-                         *bound_ms(ops, nbytes)))
+                         *bound_ms(ops, nbytes), None))
 
     rows += k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams,
                     gt_plane, rand)
+    rows += k5_rows(torch, dev, ctx, gt_plane)
+    rows += k6_rows(torch, dev)
     return rows
 
 
@@ -279,15 +311,18 @@ def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
             rand):
     """K4 at the main path's shapes: the anchors that find_anchors gives a
     30 % random weak mask on the ground-truth planes, compacted on one
-    checkerboard color (K_w = 121,600 at 608x800), 10 slot planes."""
+    checkerboard color (K_w = 121,600 at 608x800), 10 slot planes; in the
+    single-tap mode and with two sparse-patch taps per anchor."""
     import numpy as np
     from dvpmvs_torch.config import PixelState
     from dvpmvs_torch.engine.packing import pack_parity
     from dvpmvs_torch.engine.patchmatch import _band_compact, _weak_budget
     from dvpmvs_torch.kernels import anchor_fused
-    from dvpmvs_torch.kernels.deformable import anchor_fields_at
+    from dvpmvs_torch.kernels.deformable import (anchor_fields_at,
+                                                 gather_tap_words,
+                                                 pack_tap_fields)
     from dvpmvs_torch.kernels.ncc import build_cost_context
-    from dvpmvs_torch.kernels.weak import find_anchors
+    from dvpmvs_torch.kernels.weak import find_anchors, patch_candidates
     from dvpmvs_torch.rng import TorchDraws
 
     rng = np.random.default_rng(0)
@@ -316,26 +351,123 @@ def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
     n_valid = int(af.valid[:, ok_k].sum())
     print(f"  K4 inputs: K_w {K_w}, weak pixels {n_weak}, valid anchors "
           f"{n_valid} of {N_ANCHORS * n_weak}", flush=True)
+    # the tap mode's words: the bench scene's patch candidates (all views
+    # selected), packed once, gathered at the compacted anchors
+    patch_off = patch_candidates(ref_img, sel, 3.0, weak_radius=5)
+    tap_fields = pack_tap_fields(ref_img, patch_off, N_TAPS)
+    tap_w = gather_tap_words(tap_fields, af, pk1(ref_img).reshape(-1)[gidx],
+                             3.0, W, N_TAPS)
 
-    args = anchor_fused.kernel_args(ctx_yzl, planes, af, ok_k)
-    run = lambda: anchor_fused.anchor_slot_costs(*args)
-    got = run()
-    want = anchor_fused.anchor_slot_costs_plain(*args)
+    rows = []
+    for n_taps, words in ((0, None), (N_TAPS, tap_w)):
+        args = anchor_fused.kernel_args(ctx_yzl, planes, af, ok_k, words)
+        run = lambda: anchor_fused.anchor_slot_costs(*args)
+        got = run()
+        want = anchor_fused.anchor_slot_costs_plain(*args)
+        torch.cuda.synchronize()
+        label = f"S={S_SLOTS}, K={K_w}, A={N_ANCHORS}" + (
+            f", {n_taps} taps" if n_taps else "")
+        if not torch.equal(got.has_anchors, want.has_anchors):
+            raise AssertionError(f"anchor ({label}): has_anchors differs "
+                                 "from the plain version")
+        err = compare(torch, got.cost, want.cost, 1e-3, 1e-3,
+                      f"anchor {label}")
+        ms = cuda_ms(torch, run, 5)
+        plain = cuda_ms(torch, lambda: anchor_fused.anchor_slot_costs_plain(
+            *args), 1)
+        ops = S_SLOTS * K_w * V * (
+            N_ANCHORS * (K4_OPS_PER_ANCHOR + n_taps * K4_OPS_PER_TAP)
+            + 2 * K4_OPS_PER_GROUP + K4_OPS_PER_VIEW)
+        nbytes = (4 * (S_SLOTS * K_w * 3 + 5 * N_ANCHORS * K_w + V * H * W
+                       + V * n_taps * N_ANCHORS * K_w)
+                  + 5 * S_SLOTS * K_w * V)
+        rows.append(("anchor", "anchor/taps" if n_taps else
+                     "anchor/single tap", label, err, ms, plain,
+                     *bound_ms(ops, nbytes), None))
+    return rows
+
+
+def k5_rows(torch, dev, ctx, gt_plane):
+    """K5 on the ground-truth plane field at 608x800, V=10, against its
+    plain version, and grid_sample (border, align_corners) on the same
+    coordinates: the bilinear sample that is the bulk of K5's work."""
+    import torch.nn.functional as F
+    from dvpmvs_torch.kernels import warp_fused
+
+    args = (gt_plane.contiguous(), ctx.src_imgs, ctx.M, ctx.b, ctx.cam,
+            ctx.src_wh)
+    run = lambda: warp_fused.warp_field(*args)
+    got_w, got_iv = run()
+    want_w, want_iv = warp_fused.warp_field_plain(*args)
     torch.cuda.synchronize()
-    label = f"S={S_SLOTS}, K={K_w}, A={N_ANCHORS}"
-    if not torch.equal(got.has_anchors, want.has_anchors):
-        raise AssertionError("anchor: has_anchors differs from the plain "
-                             "version")
-    err = compare(torch, got.cost, want.cost, 1e-3, 1e-3, f"anchor {label}")
-    ms = cuda_ms(torch, run, 5)
-    plain = cuda_ms(torch, lambda: anchor_fused.anchor_slot_costs_plain(
-        *args), 1)
-    ops = S_SLOTS * K_w * V * (N_ANCHORS * K4_OPS_PER_ANCHOR
-                               + 2 * K4_OPS_PER_GROUP + K4_OPS_PER_VIEW)
-    nbytes = (4 * (S_SLOTS * K_w * 3 + 5 * N_ANCHORS * K_w + V * H * W)
-              + 5 * S_SLOTS * K_w * V)
-    return [("anchor", "anchor", label, err, ms, plain,
-             *bound_ms(ops, nbytes))]
+    label = f"V={V}, {H}x{W}"
+    if not torch.equal(got_iv, want_iv):
+        raise AssertionError("warp: in_view differs from the plain version")
+    err = compare(torch, got_w, want_w, 1e-3, 1e-3, f"warp {label}")
+    print(f"  warp: in view at {float(got_iv.float().mean()):.4f} of the "
+          "entries", flush=True)
+    ms = cuda_ms(torch, run, 20)
+    plain = cuda_ms(torch, lambda: warp_fused.warp_field_plain(*args), 3)
+    px, py, _ = warp_fused.warp_coords(gt_plane, ctx.M, ctx.b, ctx.cam,
+                                       ctx.src_wh)
+    grid = torch.stack([2.0 * px / (W - 1) - 1.0, 2.0 * py / (H - 1) - 1.0],
+                       dim=-1).contiguous()
+    src = ctx.src_imgs[:, None]
+    lib_run = lambda: F.grid_sample(src, grid, mode="bilinear",
+                                    padding_mode="border",
+                                    align_corners=True)
+    d = torch.abs(lib_run()[:, 0] - want_w).flatten().double()
+    print(f"  grid_sample on K5's coordinates vs K5's plain version: "
+          f"max|d|={float(d.max()):.3e} median|d|={float(d.median()):.3e}",
+          flush=True)
+    lib_ms = cuda_ms(torch, lib_run, 20)
+    ops = V * H * W * K5_OPS_PER_VIEW + H * W * K5_OPS_PER_PIXEL
+    nbytes = 16 * H * W + 4 * V * H * W + 5 * V * H * W
+    return [("warp", "warp", label, err, ms, plain, *bound_ms(ops, nbytes),
+             lib_ms)]
+
+
+def k6_rows(torch, dev):
+    """The seven K6 gather kernels at the JAX script's shapes (304x512
+    pixels, 17 x 36 steps) against their plain versions; their launches
+    are those of their own timing run."""
+    from dvpmvs_torch.bench import gather_variants as gv
+    from dvpmvs_torch.kernels import _build
+
+    ins = gv.make_inputs(device=dev)
+    Hd, Wd = ins[1].shape
+    rows = []
+    for variant in gv.VARIANTS:
+        run = lambda: gv.run(variant, *ins)
+        got = run()
+        want = gv.run_plain(variant, *ins)
+        torch.cuda.synchronize()
+        rel = torch.abs(got - want) / torch.clamp(torch.abs(want), min=1e-30)
+        err = float(torch.abs(got - want).max())
+        print(f"  gather_bench {variant}: max|d|={err:.3e} max rel "
+              f"{float(rel.max()):.3e} (allowed 1e-6)", flush=True)
+        if float(rel.max()) > 1e-6:
+            raise AssertionError(f"gather_bench {variant}: kernel disagrees "
+                                 "with its plain version")
+        _build.reset_launches()
+        ms = cuda_ms(torch, run, 20)
+        launches = _build.MODE_LAUNCHES[f"gather_bench/{variant}"]
+        plain = cuda_ms(torch, lambda: gv.run_plain(variant, *ins), 1)
+        # steps the function needs per pixel: the f32 sums run all 17 x 36
+        # in order; a wrapping int32 sum's 17 passes fold into one (times
+        # 17), and prim_select keeps only the last tap's word
+        steps = (gv.PV * gv.TAPS if variant in gv.FLOAT_VARIANTS else
+                 1 if variant == "prim_select" else gv.TAPS)
+        ops = Hd * Wd * steps * K6_OPS_PER_STEP[variant]
+        nbytes = 4 * (2 * gv.TAPS + 3 * Hd * Wd + 64 * 256)
+        rows.append(("gather_bench", f"gather_bench/{variant}",
+                     f"{variant}, {Hd}x{Wd}", err, ms, plain,
+                     *bound_ms(ops, nbytes), None, launches))
+    t = {r[2].split(",")[0]: r[4] for r in rows}
+    print(f"  gather_bench: quad8 {t['quad8']:.4f} ms vs p2x5 "
+          f"{t['p2x5']:.4f} ms ({t['quad8'] / max(t['p2x5'], 1e-9):.2f}x)",
+          flush=True)
+    return rows
 
 
 def acc2(depth, gt) -> float:
@@ -497,13 +629,14 @@ def region_acc2(depth, gt, region) -> float:
                  / max(int(region.sum()), 1))
 
 
-def apd_chain(torch, dev, scene, first, tag, refine_init: bool):
+def apd_chain(torch, dev, scene, first, tag, refine_init: bool,
+              anchor_taps: int = 1):
     """The weak-pixel passes on view 0 from the FIRST_INIT outputs
     ``first``: REFINE_INIT of round 1 (if ``refine_init``), then REFINE_ITER
     in the JAX bench's configuration (bench.py:131-159: use_APD, geometric
     consistency against the other views' FIRST_INIT depths, no labels,
-    3 iterations, edges).  Returns {label: (out, seconds, launches, callable,
-    input weak count)}."""
+    3 iterations, edges) with ``anchor_taps``.  Returns {label: (out,
+    seconds, launches, callable, input weak count, acc2)}."""
     from dvpmvs_torch.config import (PixelState, PMDynamic, PMStatic,
                                      RunState, round_pass_params)
     from dvpmvs_torch.engine import run_pass
@@ -524,10 +657,13 @@ def apd_chain(torch, dev, scene, first, tag, refine_init: bool):
         runs.append(("REFINE_INIT (round 1)", st, dyn, {}))
     st = PMStatic(state=RunState.REFINE_ITER, num_src=V,
                   max_iterations=ITERS, cost_backend="fused", use_APD=True,
-                  geom_consistency=True, use_label=False)
+                  geom_consistency=True, use_label=False,
+                  anchor_taps=anchor_taps)
     dyn = PMDynamic.create(depth_min=float(cam.depth_min),
                            depth_max=float(cam.depth_max))
-    runs.append(("REFINE_ITER (APD, geom)", st, dyn, dict(
+    it_label = "REFINE_ITER (APD, geom" + (
+        f", anchor_taps={anchor_taps})" if anchor_taps > 1 else ")")
+    runs.append((it_label, st, dyn, dict(
         src_depths=torch.stack([first[r][0].depth for r in reps]))))
     result = {}
     for label, st, dyn, extra in runs:
@@ -592,7 +728,104 @@ def apd_phase(torch, dev, scene, first):
         "weak_pixels": band_res[it_label][4],
         "acc2": band_res[it_label][5]}
     passes = {label: r[3] for label, r in res.items()}
+    return totals, summary, passes, band, band_first, before
+
+
+def warp_phase(torch, dev, scene, first):
+    """The "warp" cost backend on view 0: FIRST_INIT from random planes
+    (acc2 printed, no floor), then REFINE_ITER from the "fused" FIRST_INIT
+    outputs ``first`` in round 0's configuration (the radius map of view
+    0's output, geometric consistency against the other views' depths).
+    K5 must run once for every plane the backend evaluates, and K3's
+    per-view mode in the sweeps."""
+    from dvpmvs_torch.config import PixelState, PMStatic, round_pass_params
+    from dvpmvs_torch.engine import run_pass
+    from dvpmvs_torch.geometry import stack_cameras
+    from dvpmvs_torch.kernels import _build, ncc
+    from dvpmvs_torch.rng import TorchDraws
+
+    base = PMStatic(num_src=V, max_iterations=ITERS, cost_backend="warp")
+    reps, cam, edge = problem(torch, scene, 0)
+    src_cams = stack_cameras([scene.cameras[i] for i in reps])
+    out0 = first[0][0]
+    lim = (float(cam.depth_min), float(cam.depth_max))
+    st0, dyn0 = round_pass_params(0, 1, 0, base, *lim)
+    st1, dyn1 = round_pass_params(0, 1, 1, base, *lim)
+    runs = [
+        ("FIRST_INIT (warp)", lambda: run_pass(
+            scene.images[0], scene.images[reps], cam, src_cams, st0, dyn0,
+            TorchDraws(0, dev), edge=edge, device=dev)),
+        ("REFINE_ITER (warp, radius map, geom)", lambda: run_pass(
+            scene.images[0], scene.images[reps], cam, src_cams, st1, dyn1,
+            TorchDraws(100, dev), init_plane_world=torch.cat(
+                [out0.normal_world, out0.depth[..., None]], -1),
+            init_sel_views=out0.sel_views, init_weak=out0.weak,
+            src_depths=torch.stack([first[r][0].depth for r in reps]),
+            radius_map=out0.radius, edge=edge, device=dev)),
+    ]
+    _build.reset_launches()
+    summary, passes = {}, {}
+    for label, fn in runs:
+        planes0 = ncc.PLANES_EVALUATED["warp"]
+        out, dt, launches = timed(torch, fn)
+        planes = ncc.PLANES_EVALUATED["warp"] - planes0
+        a = acc2(out.depth.cpu().numpy(), scene.gt_depth[0])
+        n_weak = int((out.weak == PixelState.WEAK).sum())
+        print(f"  {label} view 0: {dt:.3f} s, acc2 {a:.4f}, weak pixels out "
+              f"{n_weak}, K5 launches {launches.get('warp', 0)} for {planes} "
+              f"planes evaluated, launches {launches}", flush=True)
+        if not torch.isfinite(out.depth).all() or \
+                tuple(out.depth.shape) != (H, W):
+            raise AssertionError(f"{label}: bad depth map")
+        if launches.get("warp", 0) != planes or planes <= 0:
+            raise AssertionError(f"{label}: K5 ran {launches.get('warp', 0)}"
+                                 f" times for {planes} warp planes")
+        summary[label] = {"s": dt, "acc2": a, "weak_pixels_out": n_weak,
+                          "planes": planes, "launches": launches}
+        passes[label] = fn
+    label = runs[1][0]
+    if summary[label]["acc2"] < ACC2_FLOOR:
+        raise AssertionError(f"{label} acc2 {summary[label]['acc2']:.4f} < "
+                             f"{ACC2_FLOOR}")
+    require_launched(summary[label]["launches"], ("geom/per view",), label)
+    totals = counts()
+    require_launched(totals, ("warp",), "the warp path")
     return totals, summary, passes
+
+
+def taps_phase(torch, dev, scene, first, band, band_first, band_before,
+               band_taps1):
+    """The APD REFINE_ITER of bench.py's configuration with anchor_taps=3:
+    on the bench scene (acc2 floor) and on the band scene (its region's
+    acc2 beside the single-tap pass's)."""
+    from dvpmvs_torch.kernels import _build
+
+    _build.reset_launches()
+    res = apd_chain(torch, dev, scene, first, "", refine_init=False,
+                    anchor_taps=3)
+    band_res = apd_chain(torch, dev, band, band_first, "band ",
+                         refine_init=False, anchor_taps=3)
+    totals = counts()
+    (label, r), = res.items()
+    if r[5] < ACC2_FLOOR:
+        raise AssertionError(f"{label} acc2 {r[5]:.4f} < {ACC2_FLOOR}")
+    if r[4] <= 0:
+        raise AssertionError(f"{label}: no weak pixel in the pass")
+    require_launched(totals, ("anchor/taps", "geom/parity"),
+                     "the sparse-patch tap path")
+    region = region_mask(dict(seed=6, weak_band=True))
+    br = band_res[label]
+    after = region_acc2(br[0].depth.cpu().numpy(), band.gt_depth[0], region)
+    print(f"  band scene: textureless region acc2 {band_before:.4f} after "
+          f"FIRST_INIT, {band_taps1:.4f} after the single-tap REFINE_ITER, "
+          f"{after:.4f} with anchor_taps=3", flush=True)
+    summary = {label: {"s": r[1], "acc2": r[5], "weak_pixels": r[4],
+                       "weak_overflow": int(r[0].weak_overflow),
+                       "launches": r[2]},
+               "band": {"s": br[1], "acc2": br[5], "weak_pixels": br[4],
+                        "region_acc2": after,
+                        "region_acc2_single_tap": band_taps1}}
+    return totals, summary, {label: r[3]}
 
 
 def weak_parts(torch, dev, scene, first):
@@ -634,7 +867,8 @@ def profile_phase(torch, passes):
     from torch.profiler import ProfilerActivity, profile
 
     ours = {"ncc_fused_kernel": "ncc_fused", "sweep_kernel": "sweep",
-            "geom_kernel": "geom", "anchor_kernel": "anchor"}
+            "geom_kernel": "geom", "anchor_kernel": "anchor",
+            "warp_kernel": "warp"}
     result = {}
     for label, fn in passes.items():
         torch.cuda.synchronize()
@@ -683,6 +917,7 @@ def main() -> int:
     from dvpmvs_torch.kernels import _build
     from dvpmvs_torch.utils.synthetic import make_scene
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -701,12 +936,23 @@ def main() -> int:
     print("kernel phase (kernel vs plain on the card):", flush=True)
     rows = kernel_phase(torch, dev, scene, reps0)
     print("path phase, round 0 (fused backend, 608x800, V=10):", flush=True)
-    totals, summary, passes, first = path_phase(torch, dev, scene)
+    runs = {}
+    runs["round0"], summary, passes, first = path_phase(torch, dev, scene)
     print("path phase, weak-pixel passes (fused backend, 608x800, V=10):",
           flush=True)
-    totals_apd, summary["apd"], apd_passes = apd_phase(torch, dev, scene,
-                                                       first)
+    (runs["apd"], summary["apd"], apd_passes, band, band_first,
+     band_before) = apd_phase(torch, dev, scene, first)
     passes.update(apd_passes)
+    print("path phase, the warp cost backend (608x800, V=10):", flush=True)
+    runs["warp"], summary["warp"], warp_passes = warp_phase(torch, dev,
+                                                            scene, first)
+    passes.update(warp_passes)
+    print("path phase, sparse-patch taps (anchor_taps=3, fused backend):",
+          flush=True)
+    runs["taps"], summary["taps"], taps_passes = taps_phase(
+        torch, dev, scene, first, band, band_first, band_before,
+        summary["apd"]["band"]["region_acc2_refine_iter"])
+    passes.update(taps_passes)
     if "--profile" in sys.argv[1:]:
         print("profile phase (torch.profiler, one run of each pass):",
               flush=True)
@@ -714,15 +960,19 @@ def main() -> int:
         profile_phase(torch, passes)
 
     kernels = []
-    for name, counter, label, err, ms, plain, bms, bby in rows:
-        path_totals = totals_apd if counter in APD_COUNTERS else totals
+    for row in rows:
+        name, counter, label, err, ms, plain, bms, bby, lib_ms = row[:9]
+        launches = (row[9] if len(row) > 9 else
+                    runs[COUNTER_RUN.get(counter, "round0")].get(counter, 0))
         kernels.append({
             "name": f"{name} ({label})", "route": "cuda",
             "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": path_totals.get(counter, 0), "max_abs_err": err,
+            "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": bby,
-            "library_ms": None,
+            "library_ms": lib_ms,
         })
+    summary["smoke_s"] = time.perf_counter() - t_start
+    print(f"whole run: {summary['smoke_s']:.1f} s", flush=True)
     print(json.dumps({"path": summary}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -9,8 +9,10 @@ reference).  The layout mirrors ``dvpmvs``:
              checkerboard propagation, refinement, median filter, disparity
              sweeps (K2, csrc/sweep.cu), geometric consistency
              (K3, csrc/geom.cu), the weak-pixel machinery (anchors, RANSAC
-             fit) and its anchor term (K4, csrc/anchor.cu), plus the
-             kernels' build and load step (_build.py)
+             fit) and its anchor term (K4, csrc/anchor.cu), the warped
+             source field of the "warp" cost backend (K5, csrc/warp.cu),
+             plus the kernels' build and load step (_build.py)
+  bench/     the gather microbenchmark (K6, csrc/gather_bench.cu)
   priors/    the Canny depth-edge prior (host numpy/scipy)
   engine/    the per-view PatchMatch pass
   utils/     synthetic scenes

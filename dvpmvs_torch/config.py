@@ -13,7 +13,7 @@ from typing import Tuple
 
 import numpy as np
 
-COST_BACKENDS = ("exact", "fused")
+COST_BACKENDS = ("exact", "fused", "warp")
 
 
 class RunState(IntEnum):
@@ -38,11 +38,14 @@ class PMStatic:
 
     Same fields and defaults as ``dvpmvs.config.PMStatic``.  ``cost_backend``
     is ``"exact"`` (per-center-plane window warp in plain PyTorch, constant-
-    plane sweeps) or ``"fused"`` (the counterpart of JAX's ``"pallas"``: the
+    plane sweeps), ``"fused"`` (the counterpart of JAX's ``"pallas"``: the
     NCC kernel for every candidate batch, and the sweep and geom kernels for
-    the disparity sweeps of a pass without a radius map).  Either backend runs
-    on either device; on the CPU every kernel is replaced by its plain
-    version."""
+    the disparity sweeps of a pass without a radius map) or ``"warp"`` (JAX's
+    warp mode: one warped source field per plane, from the warp-field
+    kernel, read at 36 static shifts; full grid, constant-plane sweeps).
+    Every backend runs on either device; on the CPU every kernel is replaced
+    by its plain version.  ``anchor_taps`` is 1 (anchor centers) to 3 (two
+    sparse-patch taps per anchor, each a 16-bit half of one int32 word)."""
 
     state: RunState = RunState.FIRST_INIT
     num_src: int = 0
@@ -74,6 +77,9 @@ class PMStatic:
         if self.cost_backend not in COST_BACKENDS:
             raise ValueError(f"cost_backend must be one of {COST_BACKENDS}, "
                              f"got {self.cost_backend!r}")
+        if not 1 <= self.anchor_taps <= 3:
+            raise ValueError(f"anchor_taps must be 1, 2 or 3, got "
+                             f"{self.anchor_taps}")
 
     def replace(self, **kw) -> "PMStatic":
         return dataclasses.replace(self, **kw)

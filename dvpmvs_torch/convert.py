@@ -21,7 +21,8 @@ from .engine.state import PassOutput
 from .geometry.camera import Camera
 from .kernels.weak import AnchorResult
 
-_BACKENDS = {"pallas": "fused", "exact": "exact", "fused": "fused"}
+_BACKENDS = {"pallas": "fused", "exact": "exact", "fused": "fused",
+             "warp": "warp"}
 
 
 def _get(src: Any, name: str):

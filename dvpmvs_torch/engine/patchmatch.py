@@ -14,8 +14,9 @@ with or without the weak-pixel machinery (``use_APD``).
     DepthToWeak reclassification;  LocalRefine polish
 
 Each half-iteration computes proposals on the checkerboard-packed half grid
-(fused backend) or the full grid (exact backend) and commits only its color.
-The weak half computes its anchor term (K4) at a compacted band-major list
+(fused backend) or the full grid (exact and warp backends) and commits only
+its color.  The weak half computes its anchor term (K4, with the
+sparse-patch taps where ``anchor_taps`` > 1) at a compacted band-major list
 of the weak pixels of its grid and scatters it over the center-window cost.
 Random draws come from a draw source (``rng.py``) at the full-grid shapes
 of JAX's exact path, under the JAX key paths of the same sites.
@@ -33,7 +34,8 @@ from ..config import PMDynamic, PMStatic, PixelState, RunState
 from ..geometry.camera import Camera
 from ..geometry.transforms import depth_from_plane, plane_from_world
 from ..kernels.anchor_fused import anchor_slot_costs_from_ctx
-from ..kernels.deformable import anchor_fields_at
+from ..kernels.deformable import (anchor_fields_at, gather_tap_words,
+                                  pack_tap_fields)
 from ..kernels.gatherfree import take0
 from ..kernels.geom import build_geom_context
 from ..kernels.geom_fused import geom_cost
@@ -49,7 +51,8 @@ from ..kernels.sampling import (identity_pack, plane_from_normal_depth,
 from ..kernels.sweep import depth_to_weak, local_refine
 from ..kernels.weak import (AnchorResult, demote_detail, edge_complexity,
                             edge_ray_distance, find_anchors,
-                            label_boundary_distance, ransac_fit_plane)
+                            label_boundary_distance, patch_candidates,
+                            ransac_fit_plane)
 from ..rng import DrawSource, fold_in, split
 from .packing import pack_ctx, pack_parity, unpack_parity
 from .state import PassOutput, PMState
@@ -284,17 +287,19 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
                           ctx, ctx_pk, ctx_yzl, ctx_yzl_pk, gctx, ref_img,
                           ref_cam, src_cams, static: PMStatic,
                           dyn: PMDynamic, xs, ys, rx, ry,
-                          parity) -> PMState:
+                          parity, tap_fields=None) -> PMState:
     """One weak half-iteration (CheckerboardPropagationWeak,
     APD.cu:2739-3089), anchor-center production mode.
 
     Costs, geom terms, MHJVS and refinement run on the checkerboard-packed
-    half grid (fused backend) or the full grid (exact backend).  Every slot
-    plane (8 anchor-plane candidates, current, fit) costs 0.25 x center
-    window + 0.75 x its own anchor term (K4) at the compacted weak pixels;
-    the 6 refinement proposals reuse the current plane's anchor term.  Weak
-    pixels past the budget keep the center-window cost.  Every tile is
-    computed: JAX's weak-tile skip changes no result."""
+    half grid (fused backend) or the full grid (exact and warp backends).
+    Every slot plane (8 anchor-plane candidates, current, fit) costs 0.25 x
+    center window + 0.75 x its own anchor term (K4) at the compacted weak
+    pixels, with each anchor's sparse-patch taps where ``tap_fields``
+    (``pack_tap_fields``) is given; the 6 refinement proposals reuse the
+    current plane's anchor term.  Weak pixels past the budget keep the
+    center-window cost.  Every tile is computed: JAX's weak-tile skip
+    changes no result."""
     H, W = ref_img.shape
     V = ctx.num_views
     path_c = fold_in(fold_in(path_it, color), 7)
@@ -318,6 +323,12 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
     gidx = torch.clamp(flat_idx, max=SZ - 1)
     af_k = anchor_fields_at(ctx_yzl, anchors, state.sel_views, ref_img,
                             dyn.sigma_color, pk1, gidx)
+    tap_w = None
+    if tap_fields is not None:
+        # one gather at the compacted anchors serves every per-view tap
+        ref_c_k = pk(ref_img).reshape(-1)[gidx]
+        tap_w = gather_tap_words(tap_fields, af_k, ref_c_k, dyn.sigma_color,
+                                 W, static.anchor_taps - 1)
     dump = torch.zeros((1, V), device=ref_img.device)
 
     def scatter_blend(centers, ck):
@@ -336,7 +347,8 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
         S = slot_planes.shape[0]
         centers = ncc_cost_batch(ctx_yzl_c, slot_planes, parity=par)
         pl_k = slot_planes.reshape(S, SZ, 4)[:, gidx]
-        at_k = anchor_slot_costs_from_ctx(ctx_yzl, pl_k, af_k, ok_k=ok_k)
+        at_k = anchor_slot_costs_from_ctx(ctx_yzl, pl_k, af_k, ok_k=ok_k,
+                                          tap_words=tap_w)
         center_k = centers.reshape(S, SZ, V)[:, gidx]
         ck = torch.where(at_k.has_anchors,
                          0.25 * center_k + 0.75 * at_k.cost, center_k)
@@ -505,11 +517,10 @@ def run_pass(
     if static.debug_dumps:
         raise NotImplementedError("debug dumps belong to the priors slice "
                                   "of the port (ROADMAP.md, Queue 1)")
-    if static.use_APD and (static.anchor_taps > 1 or static.exact_deformable):
+    if static.use_APD and static.exact_deformable:
         raise NotImplementedError(
-            "the sparse-patch tap mode of the anchor term (anchor_taps > 1) "
-            "and the exact deformable oracle (exact_deformable) are not "
-            "ported yet (ROADMAP.md, Queue 1)")
+            "the exact deformable oracle (exact_deformable) is not ported "
+            "yet (ROADMAP.md, Queue 1)")
     dev = resolve_device(device)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     ref_img = f32(ref_img)
@@ -605,8 +616,16 @@ def run_pass(
         cost, sel_views = _initial_cost_refine(ctx, plane, sel_views)
 
     # anchor generation (GenNeighbours + NeigbourUpdate)
-    weak_overflow = None
+    weak_overflow = tap_fields = None
     if use_apd:
+        if static.anchor_taps > 1:
+            # the sparse-patch taps: per-view visibility-aware candidates
+            # (APD.cu:3744-3794), packed into per-anchor-position words
+            # once a pass
+            patch_off = patch_candidates(ref_img, sel_views, dyn.sigma_color,
+                                         weak_radius=static.weak_radius)
+            tap_fields = pack_tap_fields(ref_img, patch_off,
+                                         static.anchor_taps - 1)
         depth_range = float(np.float32(dyn.depth_max)
                             - np.float32(dyn.depth_min))
         anchors = find_anchors(
@@ -648,7 +667,7 @@ def run_pass(
                     state, anchors, fit_plane, color, it, path_it, draws,
                     ctx, ctx_pks[color], ctx_yzl, ctx_yzl_pks[color], gctx,
                     ref_img, ref_cam, src_cams, static, dyn, xs, ys, rx, ry,
-                    parity)
+                    parity, tap_fields=tap_fields)
 
     # ---- post: depth/normal extraction + filters ----
     depth = depth_from_plane(state.plane, xs, ys, ref_cam)

@@ -13,7 +13,12 @@ static strong radius or the per-pixel adaptive radius.
 
 Backends: ``"exact"`` evaluates each plane here in plain PyTorch (taps and
 views are tensor dimensions); ``"fused"`` sends every batch to the NCC
-kernel (``ncc_fused.py``), which evaluates the same function.
+kernel (``ncc_fused.py``), which evaluates the same function; ``"warp"``
+warps the sources once per plane (``warp_field``, the warp-field kernel of
+``warp_fused.py``) and reads the warped field at the 36 taps' static
+integer shifts: the tap at p + d then sees the homography of the plane at
+p + d, not at p, which agrees with the exact window where the plane field
+is locally constant.
 """
 
 from __future__ import annotations
@@ -258,25 +263,27 @@ def _homography_fields(M, b, rx, ry, s, sx, sy, inv_fx, inv_fy):
     each a triple of [V, *P] fields (H u = base + i colx + j coly)."""
     nd = rx.dim()
     e = lambda a: a.reshape(a.shape + (1,) * nd)         # [V] -> [V, 1..]
+    colx = tuple(e(M[:, i, 0]) * inv_fx - e(b[:, i]) * sx for i in range(3))
+    coly = tuple(e(M[:, i, 1]) * inv_fy - e(b[:, i]) * sy for i in range(3))
+    return _base_fields(M, b, rx, ry, s), colx, coly
 
-    def row(i):
-        base = (e(M[:, i, 0]) * rx + e(M[:, i, 1]) * ry + e(M[:, i, 2])) \
-            - e(b[:, i]) * s
-        cx_ = e(M[:, i, 0]) * inv_fx - e(b[:, i]) * sx
-        cy_ = e(M[:, i, 1]) * inv_fy - e(b[:, i]) * sy
-        return base, cx_, cy_
 
-    r0, r1, r2 = row(0), row(1), row(2)
-    return ((r0[0], r1[0], r2[0]), (r0[1], r1[1], r2[1]),
-            (r0[2], r1[2], r2[2]))
+def _base_fields(M, b, rx, ry, s):
+    """The homography of the ray (rx, ry) under the plane term s: M [V, 3, 3],
+    b [V, 3]; rx, ry, s [*P] -> the base triple of [V, *P] fields."""
+    nd = rx.dim()
+    e = lambda a: a.reshape(a.shape + (1,) * nd)         # [V] -> [V, 1..]
+    return tuple((e(M[:, i, 0]) * rx + e(M[:, i, 1]) * ry + e(M[:, i, 2]))
+                 - e(b[:, i]) * s for i in range(3))
 
 
 def _guard(z: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
 
 
-def _center_inview(base, src_wh: torch.Tensor) -> torch.Tensor:
-    """In-view test of the window center: base triple [V, *P] -> bool."""
+def _center_coords(base, src_wh: torch.Tensor):
+    """The window center's source pixel and in-view test: base triple
+    [V, *P] -> (x, y, in_view), each [V, *P]."""
     base0, base1, base2 = base
     cz = _guard(base2)
     cx_pix = base0 / cz
@@ -284,8 +291,13 @@ def _center_inview(base, src_wh: torch.Tensor) -> torch.Tensor:
     nd = base0.dim() - 1
     sw = src_wh[:, 0].reshape((-1,) + (1,) * nd)
     sh = src_wh[:, 1].reshape((-1,) + (1,) * nd)
-    return ((cx_pix >= 0) & (cx_pix < sw) & (cy_pix >= 0) & (cy_pix < sh)
-            & (base2 > 0))
+    return cx_pix, cy_pix, ((cx_pix >= 0) & (cx_pix < sw) & (cy_pix >= 0)
+                            & (cy_pix < sh) & (base2 > 0))
+
+
+def _center_inview(base, src_wh: torch.Tensor) -> torch.Tensor:
+    """In-view test of the window center: base triple [V, *P] -> bool."""
+    return _center_coords(base, src_wh)[2]
 
 
 def _window_moments(src_imgs, base, colx, coly, radius, w_taps, wref_taps):
@@ -354,6 +366,40 @@ def _ncc_cost_exact(ctx: CostContext, plane: torch.Tensor) -> torch.Tensor:
                              s1, s2, s3, in_view)
 
 
+def warp_field(ctx: CostContext, plane: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warped source field W[v](p) = src_v(H_{plane(p)}(p)) and the center
+    in-view mask: plane [H, W, 4] -> (warped [V, H, W], in_view
+    [V, H, W]).  One bilinear sample per (view, pixel), through K5."""
+    from .warp_fused import warp_field as k5
+    return k5(plane, ctx.src_imgs, ctx.M, ctx.b, ctx.cam, ctx.src_wh)
+
+
+def _ncc_cost_warp(ctx: CostContext, plane: torch.Tensor) -> torch.Tensor:
+    """Warp-once NCC: the 36 taps read the warped field at static integer
+    shifts of the static radius (wrapping, unmasked, as JAX's), weighted by
+    the context's tap weights (built with the radius map where there is
+    one).  plane [H, W, 4] -> cost [H, W, V]."""
+    warped, in_view = warp_field(ctx, plane)
+    taps = tap_grid()
+    r = ctx.strong_radius
+    s1 = s2 = s3 = 0.0
+    for t in range(taps.shape[0]):
+        dxi = int(round(float(taps[t, 0]) * r))
+        dyi = int(round(float(taps[t, 1]) * r))
+        src_t = shift2(warped, dxi, dyi)                   # [V, H, W]
+        wv = ctx.w_taps[t] * src_t
+        s1 = s1 + wv
+        s2 = s2 + wv * src_t
+        s3 = s3 + ctx.wref_taps[t] * src_t
+    return _ncc_from_moments(1.0 / ctx.sum_w, ctx.sum_wref, ctx.sum_wref2,
+                             s1, s2, s3, in_view)
+
+
+# planes evaluated by ncc_cost_batch, by backend, since the last reset
+PLANES_EVALUATED = {b: 0 for b in ("exact", "fused", "warp")}
+
+
 def ncc_cost(ctx: CostContext, plane: torch.Tensor,
              parity: Optional[int] = None) -> torch.Tensor:
     """Bilateral-NCC cost of one plane field: plane [H', W', 4] -> cost
@@ -367,10 +413,13 @@ def ncc_cost_batch(ctx: CostContext, planes: torch.Tensor,
     """planes [B, H', W', 4] -> costs [B, H', W', V].
 
     The fused backend evaluates all B planes in one kernel launch; the exact
-    backend one plane at a time in plain PyTorch."""
+    and warp backends one plane at a time on the full grid."""
+    PLANES_EVALUATED[ctx.backend] += planes.shape[0]
     if ctx.backend == "fused":
         from .ncc_fused import fused_cost_from_ctx
         return fused_cost_from_ctx(ctx, planes, parity=parity)
     if parity is not None:
-        raise ValueError("the exact backend evaluates the full grid only")
-    return torch.stack([_ncc_cost_exact(ctx, p) for p in planes])
+        raise ValueError(f"the {ctx.backend} backend evaluates the full "
+                         "grid only")
+    one = _ncc_cost_warp if ctx.backend == "warp" else _ncc_cost_exact
+    return torch.stack([one(ctx, p) for p in planes])

@@ -9,9 +9,9 @@ depth if it improves the cost by > 0.1.
 
 The fused backend sweeps a pass without a radius map through the sweep
 kernel (K2) with the geom kernel (K3) folding the geometric term; otherwise
-(exact backend, or a radius map) the constant-plane sweep ``_sweep_costs``
-evaluates candidate chunks through ``ncc_cost_batch``, with the geom term
-from K3's per-view mode (fused) or the plain ``geom_consistency_cost``.
+(the exact and warp backends, or a radius map) the constant-plane sweep
+``_sweep_costs`` evaluates candidate chunks through ``ncc_cost_batch``, with
+the geom term from K3's per-view mode for every backend.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from ..config import PixelState
 from ..geometry.camera import Camera
 from .gatherfree import take0
-from .geom import GeomContext, geom_consistency_cost
+from .geom_fused import geom_cost
 from .ncc import COST_MAX, CostContext, ncc_cost_batch
 from .sampling import plane_from_normal_depth
 
@@ -41,7 +41,6 @@ def _field_sweep_costs(ctx: CostContext, gctx, geom_factor, depth, baseline,
     """[K, H, W] sweep costs via the sweep kernel (steps k - k0 around the
     per-pixel disparity of ``depth``); weighting, in-range and no-view
     masking match ``_sweep_costs``."""
-    from .geom_fused import geom_cost
     from .sweep_fused import sweep_weighted_from_ctx
 
     fx = ref_cam.fx
@@ -86,12 +85,7 @@ def _sweep_costs(ctx: CostContext, gctx, geom_factor, normal, depth_stack,
                                                       ref_cam) for dd in d])
         cv = ncc_cost_batch(ctx, planes)                       # [k,H,W,V]
         if gctx is not None:
-            if ctx.backend == "fused":
-                from .geom_fused import geom_cost
-                g = geom_cost(gctx, d.contiguous())
-            else:
-                g = geom_consistency_cost(gctx, d)
-            cv = cv + geom_factor * g
+            cv = cv + geom_factor * geom_cost(gctx, d.contiguous())
         cost = torch.sum(cv * w[None], dim=-1) / torch.clamp(norm, min=1e-30)
         in_range = (d >= depth_min) & (d <= depth_max)
         outs.append(torch.where(in_range & (norm > 0), cost,

@@ -17,8 +17,9 @@ Dense layout: anchors live in [A, H, W] coordinate planes.  The random
 triads come from the draw source (``rng.py``) under the JAX key paths of the
 same sites.  Where JAX selects per pixel with a one-hot sum over the small
 candidate axis (a TPU workaround), this module uses ``torch.gather``: the
-same values.  The sparse-patch candidates (``patch_candidates``) wait for
-the tap mode of the anchor term (``PMStatic.anchor_taps > 1``).
+same values.  ``patch_candidates`` (GenEdgeInform a, APD.cu:3744-3794) gives
+the per-view sparse-patch offsets of the anchor term's tap mode
+(``PMStatic.anchor_taps > 1``).
 """
 
 from __future__ import annotations
@@ -241,6 +242,67 @@ def demote_detail(weak: torch.Tensor, edge: Optional[torch.Tensor],
     hit = demote & (weak != PixelState.STRONG)
     return torch.where(hit, torch.full_like(weak, int(PixelState.UNKNOWN)),
                        weak).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# per-view sparse-patch candidate offsets (GenEdgeInform a)
+# ---------------------------------------------------------------------------
+
+def _angular_region(dx: int, dy: int) -> int:
+    ang = math.degrees(math.atan2(dy, dx))
+    if ang < 0:
+        ang += 360.0
+    return min(int(ang // 30), 11)
+
+
+def patch_candidates(ref_img: torch.Tensor, sel_views: torch.Tensor,
+                     sigma_color, weak_radius: int = 5,
+                     num_out: int = 8) -> torch.Tensor:
+    """Visibility-aware sparse patch offsets per (pixel, view): the window
+    offsets bucketed into 12 angular regions, the VISIBLE offset of largest
+    bilateral weight kept per region, then the ``num_out`` regions of
+    largest weight (APD.cu:3744-3794).
+
+    Returns offsets [V, num_out, H, W, 2] int8 ((0, 0) = an empty slot).
+    The sort is stable, as ``jnp.argsort``: equal weights (textureless
+    neighbours, or empty regions at -inf) keep region order."""
+    H, W = ref_img.shape
+    V = sel_views.shape[-1]
+    dev = ref_img.device
+    sc = torch.as_tensor(sigma_color, dtype=torch.float32, device=dev)
+    offsets = [(dx, dy) for dy in range(-weak_radius, weak_radius + 1)
+               for dx in range(-weak_radius, weak_radius + 1)
+               if not (dx == 0 and dy == 0)]
+    # view-independent: in-bounds masks and bilateral weights per offset
+    weights = []
+    for dx, dy in offsets:
+        pix = shift_map(ref_img, dx, dy)
+        wgt = torch.exp(-torch.abs(pix - ref_img) / (2.0 * sc * sc))
+        weights.append((_in_bounds_mask(H, W, dx, dy, dev), wgt))
+    neg_inf = torch.full((H, W), float("-inf"), device=dev)
+    out = []
+    for v in range(V):
+        sel_v = sel_views[..., v]
+        reg_w = [neg_inf] * 12
+        reg_dx = [torch.zeros((H, W), dtype=torch.int8, device=dev)] * 12
+        reg_dy = list(reg_dx)
+        for (dx, dy), (inb, wgt) in zip(offsets, weights):
+            reg = _angular_region(dx, dy)
+            vis = inb & shift_map(sel_v, dx, dy)
+            w = torch.where(vis, wgt, neg_inf)
+            better = w > reg_w[reg]
+            reg_w[reg] = torch.where(better, w, reg_w[reg])
+            reg_dx[reg] = torch.where(better, dx, reg_dx[reg])
+            reg_dy[reg] = torch.where(better, dy, reg_dy[reg])
+        w_stack = torch.stack(reg_w)                         # [12, H, W]
+        top = torch.argsort(-w_stack, dim=0, stable=True)[:num_out]
+        odx = torch.gather(torch.stack(reg_dx), 0, top)
+        ody = torch.gather(torch.stack(reg_dy), 0, top)
+        empty = ~torch.isfinite(torch.gather(w_stack, 0, top))
+        odx = torch.where(empty, torch.zeros_like(odx), odx)
+        ody = torch.where(empty, torch.zeros_like(ody), ody)
+        out.append(torch.stack([odx, ody], dim=-1))          # [8, H, W, 2]
+    return torch.stack(out)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@ import torch
 
 from dvpmvs_torch.engine.packing import pack_ctx, pack_parity
 from dvpmvs_torch.geometry import stack_cameras
+from dvpmvs_torch.bench import gather_variants
 from dvpmvs_torch.kernels import (_build, anchor_fused, geom_fused,
-                                  ncc_fused, sweep_fused)
+                                  ncc_fused, sweep_fused, warp_fused)
 from dvpmvs_torch.kernels.geom import build_geom_context
 from dvpmvs_torch.kernels.ncc import _grid, build_cost_context
 from dvpmvs_torch.kernels.sampling import plane_from_normal_depth
@@ -133,10 +134,13 @@ def test_geom_parity_kernel_matches_plain(card, color):
     _agree(got, geom_fused.geom_cost_plain(gctx, dstack, parity=color))
 
 
-@pytest.mark.parametrize("K", [700, 333])
-def test_anchor_kernel_matches_plain(card, K):
+@pytest.mark.parametrize("K,taps", [(700, 0), (333, 0), (700, 2),
+                                    (333, 1)])
+def test_anchor_kernel_matches_plain(card, K, taps):
     """Random anchors over the image, 10 slot planes near the ground
-    truth, views unselected at random and some anchors invalid."""
+    truth, views unselected at random and some anchors invalid; with
+    ``taps`` > 0, random sample words (offsets in [-8, 7], u8 weights and
+    refs) in the sparse-patch tap mode."""
     c = card
     A, S = 11, 10
     g = torch.Generator(device=c["dev"]).manual_seed(K)
@@ -157,16 +161,59 @@ def test_anchor_kernel_matches_plain(card, K):
     ctx = build_cost_context(c["img"][0], c["img"][1:], c["ref"], c["src"],
                              5.0, 3.0, backend="fused",
                              color_only_weights=True)
+    words, inv_f = None, None
+    if taps:
+        words = torch.randint(0, 2 ** 24, (V, taps, A, K), generator=g,
+                              device=c["dev"], dtype=torch.int32)
+        inv_f = (ctx.inv_fx, ctx.inv_fy)
     args = (ctx.src_imgs, ctx.M, ctx.b, ctx.src_wh,
             anchor_fused.slot_q(planes), rax.contiguous(), ray.contiguous(),
-            ref_a.contiguous(), w_col.contiguous(), vbits.contiguous())
+            ref_a.contiguous(), w_col.contiguous(), vbits.contiguous(),
+            words, inv_f)
     before = _build.LAUNCHES["anchor"]
+    mode = "anchor/taps" if taps else "anchor/single tap"
+    before_mode = _build.MODE_LAUNCHES.get(mode, 0)
     got = anchor_fused.anchor_slot_costs(*args)
     assert _build.LAUNCHES["anchor"] == before + 1
+    assert _build.MODE_LAUNCHES[mode] == before_mode + 1
     want = anchor_fused.anchor_slot_costs_plain(*args)
     assert torch.equal(got.has_anchors, want.has_anchors)
     _agree(got.cost, want.cost)
     assert float((got.cost < 2.0).float().mean()) > 0.3
+
+
+def test_warp_kernel_matches_plain(card):
+    """K5 on the ground-truth plane field, a plane with w = 0 at some
+    pixels (NaN coordinates) and a far plane (out of view): warped fields
+    and in-view masks equal (NaN where the plain version has NaN)."""
+    c = card
+    ctx = build_cost_context(c["img"][0], c["img"][1:], c["ref"], c["src"],
+                             5.0, 3.0, backend="warp")
+    degenerate = c["planes"][0].clone()
+    degenerate[5:9, 20:60, 3] = 0.0
+    for plane in (c["planes"][0], degenerate, c["planes"][0] * torch.tensor(
+            [1.0, 1.0, 1.0, 40.0], device=c["dev"])):
+        args = (plane.contiguous(), ctx.src_imgs, ctx.M, ctx.b, ctx.cam,
+                ctx.src_wh)
+        before = _build.LAUNCHES["warp"]
+        got_w, got_iv = warp_fused.warp_field(*args)
+        assert _build.LAUNCHES["warp"] == before + 1
+        want_w, want_iv = warp_fused.warp_field_plain(*args)
+        assert torch.equal(got_iv, want_iv)
+        _agree(got_w, want_w)
+
+
+@pytest.mark.parametrize("variant", gather_variants.VARIANTS)
+def test_gather_bench_kernel_matches_plain(card, variant):
+    """K6 on a 16 x 256 grid: int variants equal, f32 variants within
+    1e-6 relative (the sums run in one order in both)."""
+    ins = gather_variants.make_inputs(seed=1, grid=(2, 2), device=card["dev"])
+    before = _build.MODE_LAUNCHES.get(f"gather_bench/{variant}", 0)
+    got = gather_variants.run(variant, *ins)
+    assert _build.MODE_LAUNCHES[f"gather_bench/{variant}"] == before + 1
+    want = gather_variants.run_plain(variant, *ins)
+    rel = torch.abs(got - want) / torch.clamp(torch.abs(want), min=1e-30)
+    assert float(rel.max()) <= 1e-6
 
 
 def test_apd_pass_with_a_label_map_on_the_card(card):
@@ -200,3 +247,49 @@ def test_apd_pass_with_a_label_map_on_the_card(card):
     assert bool(torch.isfinite(out.depth).all())
     assert _build.LAUNCHES["anchor"] == 2
     assert _build.MODE_LAUNCHES["geom/parity"] == 4
+
+
+def test_warp_and_tap_passes_on_the_card(card):
+    """REFINE_ITER with the warp backend (K5 at every plane it evaluates,
+    K3 per view in its sweeps), without and with use_APD (K4 on the full
+    grid), and with use_APD and anchor_taps=3 (K4's tap mode): finite
+    depths."""
+    from dvpmvs_torch.config import PixelState, PMDynamic, PMStatic, RunState
+    from dvpmvs_torch.engine import run_pass
+    from dvpmvs_torch.kernels import ncc
+    from dvpmvs_torch.rng import TorchDraws
+    c = card
+    scene, dev = c["scene"], c["dev"]
+    dyn = PMDynamic.create(depth_min=float(c["ref"].depth_min),
+                           depth_max=float(c["ref"].depth_max))
+    weak = torch.full((H, W), int(PixelState.STRONG), dtype=torch.int8,
+                      device=dev)
+    weak[10:30, 40:120] = int(PixelState.WEAK)
+    init = dict(init_plane_world=torch.cat(
+        [torch.as_tensor(scene.gt_normal[0], device=dev),
+         c["depth"][..., None]], -1),
+        init_sel_views=torch.ones((H, W, V), dtype=torch.bool, device=dev),
+        init_weak=weak, src_depths=scene.gt_depth[1:])
+    apd = dict(use_APD=True, rotate_time=2, use_label=False)
+    for st in (PMStatic(state=RunState.REFINE_ITER, num_src=V,
+                        max_iterations=1, cost_backend="warp",
+                        geom_consistency=True),
+               PMStatic(state=RunState.REFINE_ITER, num_src=V,
+                        max_iterations=1, cost_backend="warp",
+                        geom_consistency=True, **apd),
+               PMStatic(state=RunState.REFINE_ITER, num_src=V,
+                        max_iterations=1, cost_backend="fused",
+                        geom_consistency=True, anchor_taps=3, **apd)):
+        _build.reset_launches()
+        planes = dict(ncc.PLANES_EVALUATED)
+        out = run_pass(scene.images[0], scene.images[1:], c["ref"],
+                       c["src"], st, dyn, TorchDraws(0), **init)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out.depth).all())
+        if st.cost_backend == "warp":
+            assert _build.LAUNCHES["warp"] == (
+                ncc.PLANES_EVALUATED["warp"] - planes["warp"]) > 0
+            assert _build.MODE_LAUNCHES["geom/per view"] > 0
+        if st.use_APD:
+            mode = "taps" if st.anchor_taps > 1 else "single tap"
+            assert _build.MODE_LAUNCHES[f"anchor/{mode}"] == 2

@@ -304,9 +304,13 @@ def test_geom_plain_fold_matches_jax_pallas_interpret(setup):
 
 def test_wrappers_run_plain_on_cpu_and_count_no_launch(setup):
     """A CPU tensor takes the plain version; no launch is counted."""
+    from dvpmvs_torch.kernels.ncc import warp_field
     _build.reset_launches()
     _, ctx_t = _ctxs(setup, "exact")
-    ncc_fused.fused_cost_from_ctx(
-        ctx_t, torch.as_tensor(np.array(setup["planes"][:1])))
+    plane = torch.as_tensor(np.array(setup["planes"][:1]))
+    ncc_fused.fused_cost_from_ctx(ctx_t, plane)
+    warp_field(ctx_t, plane[0])
     assert _build.LAUNCHES == {name: 0 for name in _build.SOURCES}
-    assert set(_build.SOURCES) == {"ncc_fused", "sweep", "geom", "anchor"}
+    assert not _build.MODE_LAUNCHES
+    assert set(_build.SOURCES) == {"ncc_fused", "sweep", "geom", "anchor",
+                                   "warp", "gather_bench"}

@@ -88,17 +88,17 @@ SLICE_H, SLICE_W, SLICE_V = 48, 64, 4
 SLICE_KEY = 0
 
 
-def slice_problem(pass_idx):
+def slice_problem(pass_idx, backend="exact"):
     """The slice's scene, its Canny edge map, and the (static, dynamic)
     params of round 0's pass ``pass_idx`` (0 FIRST_INIT, 1 REFINE_ITER)
-    with one iteration on JAX's exact backend."""
+    with one iteration on JAX's ``backend`` ("exact" or "warp")."""
     scene = make_scene(num_views=SLICE_V + 1, height=SLICE_H, width=SLICE_W,
                        seed=2)
     ref = scene.cameras[0]
     edge = np.asarray(edge_segment(0, scene.images[0], mode=0,
                                    use_canny=True) > 0)
     base = j_config.PMStatic(num_src=SLICE_V, max_iterations=1,
-                             cost_backend="exact")
+                             cost_backend=backend)
     st, dyn = j_config.round_pass_params(0, 1, pass_idx, base,
                                          float(ref.depth_min),
                                          float(ref.depth_max))

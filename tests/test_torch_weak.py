@@ -241,8 +241,38 @@ def test_apd_pass_with_a_label_map_runs(state):
     assert not torch.equal(out.depth, no_label.depth)
 
 
-@pytest.mark.parametrize("field,value", [("anchor_taps", 3),
-                                         ("exact_deformable", True),
+@pytest.mark.parametrize("taps", [2, 3])
+def test_apd_pass_with_anchor_taps_runs(taps):
+    """run_pass with use_APD and the sparse-patch taps (anchor_taps 2 or 3,
+    K4's tap mode through its plain version): finite depths of the right
+    shape, and the taps change the weak region's depths."""
+    scene, st, run, _ = _apd_problem()
+    out = run(st.replace(anchor_taps=taps))
+    assert tuple(out.depth.shape) == (H, W)
+    assert bool(torch.isfinite(out.depth).all())
+    assert not torch.equal(out.depth, run(st).depth)
+
+
+@pytest.mark.parametrize("state", ["REFINE_INIT", "REFINE_ITER"])
+def test_apd_pass_on_the_warp_backend_runs(state):
+    """run_pass with use_APD on the "warp" cost backend (full grid, the
+    weak half's centers through the warp-once NCC, the anchor term through
+    K4's plain version): finite depths of the right shape, no budget
+    overflow, and the weak region's depths differ from the fused pass's."""
+    from dvpmvs_torch.config import RunState
+    scene, st, run, _ = _apd_problem()
+    st = st.replace(state=RunState[state],
+                    geom_consistency=state == "REFINE_ITER")
+    extra = (dict(src_depths=scene.gt_depth[1:])
+             if state == "REFINE_ITER" else {})
+    out = run(st.replace(cost_backend="warp"), **extra)
+    assert tuple(out.depth.shape) == (H, W)
+    assert bool(torch.isfinite(out.depth).all())
+    assert int(out.weak_overflow) == 0
+    assert not torch.equal(out.depth, run(st, **extra).depth)
+
+
+@pytest.mark.parametrize("field,value", [("exact_deformable", True),
                                          ("debug_dumps", True)])
 def test_apd_modes_not_ported_raise(field, value):
     _, st, run, _ = _apd_problem()
