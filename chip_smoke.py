@@ -5,7 +5,8 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels (csrc/*.cu, one nvcc per source, in
-   parallel) into build/dvpmvs_torch/;
+   parallel) into build/dvpmvs_torch/ and prints each kernel's registers,
+   shared memory and spills (-Xptxas -v);
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it (608x800, V=10; K4 at the
    compacted weak pixels of one color of a 30 % weak mask, K_w = 121,600,
@@ -925,10 +926,10 @@ def main() -> int:
     logs = _build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+    for name in _build.SOURCES:
+        print(f"  {name} ({_build.flags(name)[-1]}), -Xptxas -v:", flush=True)
+        for line in _build.ptxas_report(name):
+            print(f"    {line}", flush=True)
     dev = torch.device("cuda")
 
     scene = make_scene(num_views=5, height=H, width=W, seed=2)

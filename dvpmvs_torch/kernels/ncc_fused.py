@@ -15,6 +15,14 @@ differences on ~0.2 % of entries, where (n, w) reproduces the exact path to
 moment sums, radius map) live on the checkerboard-packed half grid
 (engine/packing.py) and evaluation pixel (y, i) sits at
 x = 2 i + (y + parity) % 2; the sources stay full resolution.
+
+The kernel rounds every operation as the plain version does and agrees
+with it bitwise (``chip_smoke.py`` holds it to 1e-3 except on 1e-3 of the
+entries); its two quotients a tap share one refined reciprocal of hz, which
+gives the divides' own bits.  It may not round otherwise: the variance's
+cancellation turns a last-bit change in a tap (an FMA, a product with a
+plain reciprocal in place of a divide) into cost differences above 1e-3 on
+~2 % of the entries at 608 x 800 (``tests/test_torch_kernel_model.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from .ncc import (_center_inview, _grid, _ncc_from_moments,
                   _window_moments, plane_warp_fields)
 
 _NAME = "ncc_fused"
+MAX_VIEWS = 128     # the (plane, view) costs a block stages per pixel
 
 
 def eval_coords(Hp: int, Wp: int, parity: Optional[int], device):
@@ -96,10 +105,16 @@ def fused_ncc_costs(planes, w_taps, wref_taps, wsums, src, M, b, cam, src_wh,
         raise ValueError(f"fused_ncc_costs: unsupported device "
                          f"{planes.device}")
 
+    if V > MAX_VIEWS or H < 2 or W < 2:
+        raise ValueError(f"fused_ncc_costs: the kernel takes at most "
+                         f"{MAX_VIEWS} views of at least 2 x 2 pixels, got "
+                         f"{V} of {H} x {W}")
     mats = _mats(M, b)
     ins = [planes, w_taps, wref_taps, wsums, radius_map, src, mats, cam,
            src_wh]
     _build.require_cuda_inputs(_NAME, ins, planes.device)
+    if planes.data_ptr() % 16:          # the kernel reads a plane as float4
+        planes = planes.clone()
     out = torch.empty((B, Hp, Wp, V), dtype=torch.float32,
                       device=planes.device)
     lib = _build.library(_NAME)

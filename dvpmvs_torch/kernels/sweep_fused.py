@@ -15,7 +15,10 @@ edge-replicates its zero-padded 16x256 tile multiple instead, so the two
 differ within the window radius of the right and bottom borders.
 
 ``sweep_weighted_ncc`` launches ``csrc/sweep.cu`` for tensors on the card
-and runs ``sweep_weighted_ncc_plain`` for tensors on the CPU.
+and runs ``sweep_weighted_ncc_plain`` for tensors on the CPU.  The kernel
+rounds every operation as the plain version does and agrees with it
+bitwise (``chip_smoke.py`` holds it to 5e-3 except on 1e-3 of the entries;
+``tests/test_torch_kernel_model.py`` shows why it may not round otherwise).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from .ncc import (COST_MAX, _K_MIN_VAR, _TAP_AXIS, _bilinear_sample_batch,
 from .ncc_fused import _mats
 
 _NAME = "sweep"
+MAX_HALO = 8        # the kernel's radii: 0..8, each its own instantiation
+MAX_VIEWS = 32      # the views' M, b staged in shared memory
 
 
 def tap_offsets(radius: int) -> np.ndarray:
@@ -113,22 +118,27 @@ def sweep_weighted_ncc(invd0, invbl, vweights, w_taps, wref_taps, wsums, src,
     if invd0.device.type != "cuda":
         raise ValueError(f"sweep_weighted_ncc: unsupported device "
                          f"{invd0.device}")
-    offs = tap_offsets(radius)
-    halo = int(np.abs(offs).max())
+    halo = int(np.abs(tap_offsets(radius)).max())
+    if radius != int(radius) or halo > MAX_HALO:
+        raise ValueError(f"sweep_weighted_ncc: the kernel takes an integer "
+                         f"radius of at most {MAX_HALO}, got {radius}")
+    if V > MAX_VIEWS or H < 2 or W < 2:
+        raise ValueError(f"sweep_weighted_ncc: the kernel takes at most "
+                         f"{MAX_VIEWS} views of at least 2 x 2 pixels, got "
+                         f"{V} of {H} x {W}")
     mats = _mats(M, b)
     ins = [invd0, invbl, vweights, w_taps, wref_taps, wsums, src, mats, cam,
            src_wh]
     _build.require_cuda_inputs(_NAME, ins, invd0.device)
-    taps = torch.as_tensor(offs, device=invd0.device).contiguous()
     out = torch.empty((K, H, W), dtype=torch.float32, device=invd0.device)
     fn = _build.library(_NAME).launch_sweep
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     P = _build.ptr
     err = fn(P(invd0), P(invbl), P(vweights), P(w_taps), P(wref_taps),
-             P(wsums), P(src), P(mats), P(cam), P(src_wh), P(taps), P(out),
-             int(K), int(k0), V, H, W, halo,
+             P(wsums), P(src), P(mats), P(cam), P(src_wh), P(out),
+             int(K), int(k0), V, H, W, int(radius),
              ctypes.c_void_p(_build.stream_ptr(invd0)))
     _build.check(err, _NAME)
     return out

@@ -7,9 +7,11 @@ conftest (which sets up JAX for the other tests):
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
 
-The kernels are built without multiply-add contraction and accumulate in
-their plain versions' order, so they agree bitwise at these shapes; the
-bound allows a last-bit difference at 1e-3 of the entries.
+The kernels round every operation as their plain versions do (K3-K6 are
+built without multiply-add contraction; K1 and K2 use explicit
+round-to-nearest intrinsics) and accumulate in the same order, so they
+agree bitwise at these shapes.  The measure is chip_smoke.py's: median
+|d| <= 1e-3 (K2: 5e-3) and a share <= 1e-3 of the entries above it.
 """
 
 import numpy as np
@@ -51,13 +53,16 @@ def card():
                 depth=depth, planes=planes)
 
 
-def _agree(got, want):
+def _agree(got, want, bound=1e-3):
+    """chip_smoke.compare's measure: NaN in both agrees, NaN in one does
+    not; median |d| <= bound and a share <= 1e-3 above it."""
     assert got.shape == want.shape
     d = torch.abs(got - want)
     d = torch.where(torch.isnan(got) & torch.isnan(want),
                     torch.zeros_like(d), d)
-    share = float((~(d <= 1e-3)).double().mean())
-    assert share <= 1e-3, share
+    d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+    share = float((d > bound).double().mean())
+    assert share <= 1e-3 and float(d.double().median()) <= bound, share
 
 
 def _ncc_args(ctx, planes):
@@ -102,7 +107,108 @@ def test_sweep_kernel_matches_plain(card):
     args = (invd0, invbl, vw, ctx.w_taps, ctx.wref_taps, wsums,
             ctx.src_imgs, ctx.M, ctx.b, ctx.cam, ctx.src_wh)
     got = sweep_fused.sweep_weighted_ncc(*args, K=9, k0=4)
-    _agree(got, sweep_fused.sweep_weighted_ncc_plain(*args, K=9, k0=4))
+    _agree(got, sweep_fused.sweep_weighted_ncc_plain(*args, K=9, k0=4), 5e-3)
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    """A 37 x 101 scene: no tile of K1 (32 pixels) or K2 (16 x 32) fits
+    it evenly, dense or packed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    Hr, Wr = 37, 101
+    scene = make_scene(num_views=V + 1, height=Hr, width=Wr, seed=5)
+    ref = scene.cameras[0].to(dev)
+    src = stack_cameras(scene.cameras[1:]).to(dev)
+    img = torch.as_tensor(scene.images, device=dev)
+    xs, ys = _grid(Hr, Wr, dev)
+    depth = torch.as_tensor(scene.gt_depth[0], device=dev)
+    plane = plane_from_normal_depth(
+        torch.as_tensor(scene.gt_normal[0], device=dev), depth, xs, ys, ref)
+    ctx = build_cost_context(img[0], img[1:], ref, src, 5.0, 3.0,
+                             backend="fused")
+    return dict(dev=dev, ref=ref, src=src, depth=depth, plane=plane, ctx=ctx)
+
+
+def _k1(ctx, planes, par):
+    """K1 and its plain version on ``planes`` (dense, or packed on color
+    ``par``); the kernel's launch is counted."""
+    if par is not None:
+        ctx = pack_ctx(ctx, par)
+        planes = pack_parity(planes, par, axis=1)
+    args = _ncc_args(ctx, planes)
+    kw = dict(radius_map=ctx.radius.contiguous() if ctx.has_radius_map
+              else None, parity=par)
+    before = _build.LAUNCHES["ncc_fused"]
+    got = ncc_fused.fused_ncc_costs(*args, **kw)
+    assert _build.LAUNCHES["ncc_fused"] == before + 1
+    return got, ncc_fused.fused_ncc_costs_plain(*args, **kw)
+
+
+@pytest.mark.parametrize("par", [None, 0, 1])
+def test_ncc_kernel_ragged_shape(ragged, par):
+    """K1 at 37 x 101 with 5 planes (the last of a block's pixels and of
+    its staged planes are partial)."""
+    r = ragged
+    scale = torch.linspace(0.9, 1.1, 5, device=r["dev"])
+    planes = r["plane"][None].repeat(5, 1, 1, 1)
+    planes[..., 3] *= scale[:, None, None]
+    got, want = _k1(r["ctx"], planes.contiguous(), par)
+    assert tuple(got.shape) == (5, 37, 101 if par is None else 51, V)
+    _agree(got, want)
+
+
+def test_ncc_kernel_degenerate_planes(ragged):
+    """w = 0 at some pixels (NaN coordinates: NaN where the plain version
+    has NaN, 2 where it has 2) and a plane just behind the reference
+    camera, which puts every window center behind a source camera
+    (hz <= 0: cost 2)."""
+    from dvpmvs_torch.kernels.ncc import plane_warp_fields
+    r = ragged
+    ctx = r["ctx"]
+    zero_w = r["plane"].clone()
+    zero_w[5:9, 20:60, 3] = 0.0
+    behind = r["plane"] * torch.tensor([1.0, 1.0, 1.0, -1e-3],
+                                       device=r["dev"])
+    got, want = _k1(ctx, torch.stack([zero_w, behind]), None)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got[0, 5:9, 20:60] == 2.0, want[0, 5:9, 20:60] == 2.0)
+    _agree(got, want)
+    base, _, _ = plane_warp_fields(ctx.M, ctx.b, behind, ctx.rx, ctx.ry,
+                                   ctx.inv_fx, ctx.inv_fy)
+    hz_neg = torch.movedim(base[2] <= 0, 0, -1)
+    assert bool(hz_neg.any())
+    assert bool((got[1][hz_neg] == 2.0).all())
+
+
+def test_sweep_kernel_ragged_shape_no_motion(ragged):
+    """K2 at 37 x 101 (partial tiles at the right and bottom borders) with
+    invbl = 0 on the left third of the grid (no motion: every step reads
+    the same field there)."""
+    r = ragged
+    ctx, dev = r["ctx"], r["dev"]
+    Hr, Wr = r["depth"].shape
+    invd0 = (1.0 / r["depth"]).contiguous()
+    invbl = torch.full((Hr, Wr), 1.0 / (float(r["ref"].fx) * 0.3),
+                       device=dev)
+    invbl[:, : Wr // 3] = 0.0
+    vw = torch.rand((V, Hr, Wr), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    wsums = torch.stack([ctx.sum_w, ctx.sum_wref, ctx.sum_wref2])
+    args = (invd0, invbl.contiguous(), vw, ctx.w_taps, ctx.wref_taps, wsums,
+            ctx.src_imgs, ctx.M, ctx.b, ctx.cam, ctx.src_wh)
+    before = _build.LAUNCHES["sweep"]
+    got = sweep_fused.sweep_weighted_ncc(*args, K=11, k0=5)
+    assert _build.LAUNCHES["sweep"] == before + 1
+    want = sweep_fused.sweep_weighted_ncc_plain(*args, K=11, k0=5)
+    _agree(got, want, 5e-3)
+    # no motion: every step is the same weighted sum where no tap reaches
+    # past the left third
+    still = got[:, :, : Wr // 3 - 5]
+    assert torch.equal(still, still[:1].expand_as(still))
+    with pytest.raises(ValueError):
+        sweep_fused.sweep_weighted_ncc(*args, K=11, k0=5, radius=9)
 
 
 @pytest.mark.parametrize("fold", [True, False])
