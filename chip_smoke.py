@@ -14,7 +14,10 @@
    K5 on the ground-truth plane field; the seven K6 gather kernels at their
    own shapes), and times both with CUDA events; K5's row also times
    torch.nn.functional.grid_sample on the same coordinates, which computes
-   its bilinear sample (the port never calls it);
+   its bilinear sample (the port never calls it); after the path phases,
+   K4 again at the bench scene's own compaction (the round-0 weak map of
+   view 0 that the APD passes start from: ~5,900 weak pixels in 121,600
+   compacted entries), both modes;
 4. path phase, round 0: runs the main path of pyramid round 0 through the
    port's entry point run_pass with the "fused" backend: FIRST_INIT on
    views 0-4 of a synthetic 608x800 scene (10 replicated source views,
@@ -73,7 +76,15 @@ K1_OPS_PER_VIEW = 60         # homography terms, in-view test, NCC tail
 K2_OPS_PER_FIELD = 35        # one warped-field bilinear sample
 K2_OPS_PER_TAP = 7           # three moment updates from the field
 K2_OPS_PER_VIEW = 30         # in-view test, NCC tail, weighted fold
-K3_OPS_PER_VIEW = 110        # project, lookup, back-project, re-project
+# K3 per (candidate, pixel, view), the least arithmetic of the function: the
+# composed form of geom_pallas.py:78-113 (M r hoisted per pixel and view,
+# 1 / d per candidate): h = M r + b / d 6, guard 2, quotients 2, nearest
+# pixel (add, convert, clamp) 6, back-projection 6, h2 = N X + g 18, guard 2,
+# quotients 2, differences 2, distance 4, min 1, invalid test 3; the fold
+# adds its weighted sum (2).  The kernel keeps the plain version's steps:
+# ~150 instructions.
+K3_OPS_PER_VIEW = 54
+K3_OPS_FOLD = 2
 # K4 per (slot, pixel, view, anchor): ray . q 4, homography rows 18, front
 # and guard 3, divides 2, in-view 4, clamps 4, floors 2, fractions 2,
 # bilinear blend 11, shifts by c0 2, weight select 1, moments 15, counts 2
@@ -272,7 +283,7 @@ def kernel_phase(torch, dev, scene, reps):
                      5)
         plain = cuda_ms(torch, lambda: geom_fused.geom_cost_plain(
             gctx, dstack, **kw), 1)
-        ops = K * H * W * V * K3_OPS_PER_VIEW
+        ops = K * H * W * V * (K3_OPS_PER_VIEW + (K3_OPS_FOLD if fold else 0))
         nbytes = 4 * (K * H * W + V * H * W
                       + (V * H * W + K * H * W if fold else K * H * W * V))
         rows.append(("geom", "geom/fold" if fold else "geom/per view",
@@ -316,14 +327,7 @@ def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
     single-tap mode and with two sparse-patch taps per anchor."""
     import numpy as np
     from dvpmvs_torch.config import PixelState
-    from dvpmvs_torch.engine.packing import pack_parity
-    from dvpmvs_torch.engine.patchmatch import _band_compact, _weak_budget
-    from dvpmvs_torch.kernels import anchor_fused
-    from dvpmvs_torch.kernels.deformable import (anchor_fields_at,
-                                                 gather_tap_words,
-                                                 pack_tap_fields)
-    from dvpmvs_torch.kernels.ncc import build_cost_context
-    from dvpmvs_torch.kernels.weak import find_anchors, patch_candidates
+    from dvpmvs_torch.kernels.weak import find_anchors
     from dvpmvs_torch.rng import TorchDraws
 
     rng = np.random.default_rng(0)
@@ -333,10 +337,63 @@ def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
     anchors = find_anchors(weak, gt_plane, ref_cam, TorchDraws(0, dev), (),
                            rotate_time=4, depth_range=float(
                                ref_cam.depth_max - ref_cam.depth_min))
+    sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
+    return k4_cell_rows(torch, dev, "", weak, anchors, gt_plane, sel,
+                        ref_img, src_imgs, ref_cam, src_cams, rand)
+
+
+def k4_path_rows(torch, dev, scene, first):
+    """K4 at the bench scene's own compaction in the APD REFINE_ITER: the
+    round-0 weak map of view 0 (FIRST_INIT's output, the pass's input),
+    its anchors as the pass searches them (edges, edge complexity), its
+    selected views, slot planes around its FIRST_INIT planes, compacted on
+    one color at the pass's budget (half the packed grid, mostly fill)."""
+    from dvpmvs_torch.geometry import stack_cameras
+    from dvpmvs_torch.geometry.transforms import plane_from_world
+    from dvpmvs_torch.kernels.ncc import _grid
+    from dvpmvs_torch.kernels.weak import edge_complexity, find_anchors
+    from dvpmvs_torch.rng import TorchDraws
+
+    reps, cam, edge = problem(torch, scene, 0)
+    cam, edge = cam.to(dev), edge.to(dev)
+    out0 = first[0][0]
+    xs, ys = _grid(H, W, dev)
+    plane = plane_from_world(torch.cat(
+        [out0.normal_world, out0.depth[..., None]], -1), xs, ys, cam)
+    anchors = find_anchors(out0.weak, plane, cam, TorchDraws(0, dev), (),
+                           rotate_time=4, edge=edge,
+                           complexity=edge_complexity(edge, 5),
+                           depth_range=float(cam.depth_max - cam.depth_min))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    src_cams = stack_cameras([scene.cameras[i] for i in reps]).to(dev)
+    src_imgs = torch.as_tensor(scene.images[reps], device=dev).contiguous()
+    ref_img = torch.as_tensor(scene.images[0], device=dev)
+    return k4_cell_rows(torch, dev, "path compaction, ", out0.weak, anchors,
+                        plane, out0.sel_views, ref_img, src_imgs, cam,
+                        src_cams, rand)
+
+
+def k4_cell_rows(torch, dev, tag, weak, anchors, plane, sel, ref_img,
+                 src_imgs, ref_cam, src_cams, rand):
+    """K4 against its plain version on the weak pixels of ``weak`` with
+    ``anchors``, compacted on color 0 at the weak half-iterations' budget,
+    10 slot planes around ``plane``: single tap and two taps.  The bound
+    counts the (k, v) with a usable anchor: the kernel writes the others'
+    fixed result without warping."""
+    from dvpmvs_torch.config import PixelState
+    from dvpmvs_torch.engine.packing import pack_parity
+    from dvpmvs_torch.engine.patchmatch import _band_compact, _weak_budget
+    from dvpmvs_torch.kernels import anchor_fused
+    from dvpmvs_torch.kernels.deformable import (anchor_fields_at,
+                                                 gather_tap_words,
+                                                 pack_tap_fields)
+    from dvpmvs_torch.kernels.ncc import build_cost_context
+    from dvpmvs_torch.kernels.weak import patch_candidates
+
     ctx_yzl = build_cost_context(ref_img, src_imgs, ref_cam, src_cams, 5.0,
                                  3.0, backend="fused",
                                  color_only_weights=True)
-    sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
     color = 0
     pk1 = lambda a, axis=0: pack_parity(a, color, axis)
     weak_pk = pk1(weak == PixelState.WEAK)
@@ -345,19 +402,24 @@ def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
     flat_idx, ok_k = _band_compact(weak_pk, K_w)
     gidx = torch.clamp(flat_idx, max=SZ - 1)
     af = anchor_fields_at(ctx_yzl, anchors, sel, ref_img, 3.0, pk1, gidx)
-    plane_k = pk1(gt_plane).reshape(SZ, 4)[gidx]
+    plane_k = pk1(plane).reshape(SZ, 4)[gidx]
     planes = plane_k[None].repeat(S_SLOTS, 1, 1)
     planes[..., 3] *= 1.0 + 0.1 * (rand(S_SLOTS, K_w) - 0.5)
     n_weak = int(ok_k.sum())
     n_valid = int(af.valid[:, ok_k].sum())
-    print(f"  K4 inputs: K_w {K_w}, weak pixels {n_weak}, valid anchors "
-          f"{n_valid} of {N_ANCHORS * n_weak}", flush=True)
-    # the tap mode's words: the bench scene's patch candidates (all views
-    # selected), packed once, gathered at the compacted anchors
+    # the tap mode's words: the scene's patch candidates, packed once,
+    # gathered at the compacted anchors
     patch_off = patch_candidates(ref_img, sel, 3.0, weak_radius=5)
     tap_fields = pack_tap_fields(ref_img, patch_off, N_TAPS)
     tap_w = gather_tap_words(tap_fields, af, pk1(ref_img).reshape(-1)[gidx],
                              3.0, W, N_TAPS)
+
+    vbits = anchor_fused.kernel_args(ctx_yzl, planes, af, ok_k)[9]
+    n_kv = sum(int(((vbits >> v) & 1).any(0).sum()) for v in range(V))
+    print(f"  K4 inputs ({tag or 'kernel cell, '}K_w {K_w}): weak pixels "
+          f"{n_weak}, valid anchors {n_valid} of {N_ANCHORS * n_weak}, "
+          f"(pixel, view) with a usable anchor {n_kv} of {K_w * V}",
+          flush=True)
 
     rows = []
     for n_taps, words in ((0, None), (N_TAPS, tap_w)):
@@ -366,7 +428,7 @@ def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
         got = run()
         want = anchor_fused.anchor_slot_costs_plain(*args)
         torch.cuda.synchronize()
-        label = f"S={S_SLOTS}, K={K_w}, A={N_ANCHORS}" + (
+        label = f"{tag}S={S_SLOTS}, K={K_w}, A={N_ANCHORS}" + (
             f", {n_taps} taps" if n_taps else "")
         if not torch.equal(got.has_anchors, want.has_anchors):
             raise AssertionError(f"anchor ({label}): has_anchors differs "
@@ -376,7 +438,7 @@ def k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams, gt_plane,
         ms = cuda_ms(torch, run, 5)
         plain = cuda_ms(torch, lambda: anchor_fused.anchor_slot_costs_plain(
             *args), 1)
-        ops = S_SLOTS * K_w * V * (
+        ops = S_SLOTS * n_kv * (
             N_ANCHORS * (K4_OPS_PER_ANCHOR + n_taps * K4_OPS_PER_TAP)
             + 2 * K4_OPS_PER_GROUP + K4_OPS_PER_VIEW)
         nbytes = (4 * (S_SLOTS * K_w * 3 + 5 * N_ANCHORS * K_w + V * H * W
@@ -954,6 +1016,8 @@ def main() -> int:
         torch, dev, scene, first, band, band_first, band_before,
         summary["apd"]["band"]["region_acc2_refine_iter"])
     passes.update(taps_passes)
+    print("kernel phase, K4 at the bench scene's own compaction:", flush=True)
+    rows += k4_path_rows(torch, dev, scene, first)
     if "--profile" in sys.argv[1:]:
         print("profile phase (torch.profiler, one run of each pass):",
               flush=True)

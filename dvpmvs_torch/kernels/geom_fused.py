@@ -92,6 +92,8 @@ def geom_cost(gctx: GeomContext, depth_stack: torch.Tensor,
     if depth_stack.device.type != "cuda":
         raise ValueError(f"geom_cost: unsupported device "
                          f"{depth_stack.device}")
+    if V > 32:
+        raise ValueError("geom_cost: at most 32 views on the card")
 
     ref = _cam_rows(gctx.ref_K, gctx.ref_R, gctx.ref_t, gctx.ref_c)
     srcs = _cam_rows(gctx.src_K, gctx.src_R, gctx.src_t, gctx.src_c)

@@ -204,3 +204,73 @@ def test_geom_parity_plain_matches_jax_pallas_interpret(W, color):
           f"share>1e-3 {share:.2e}")
     assert share <= 1e-3, share
     assert float((got < 3.0).mean()) > 0.5
+
+
+def _k4_fixed_problem(n_extra, K=90, A=7, S=6, V=3, H=24, W=40):
+    """K4's arguments through ``kernel_args`` at random anchors (A not a
+    multiple of 4): the last 20 compacted entries are fill (ok_k false),
+    view 1 is seen by no anchor of pixels 0-9, some anchors are invalid;
+    the slot planes near the ground truth, with w = 0 (huge q), NaN and
+    infinite planes at some pixels; random tap words with ``n_extra``."""
+    from dvpmvs_torch.geometry import stack_cameras as t_stack
+    from dvpmvs_torch.kernels.ncc import _grid
+    from dvpmvs_torch.kernels.sampling import plane_from_normal_depth
+    from dvpmvs_torch.utils.synthetic import make_scene as t_scene
+    sc = t_scene(num_views=V + 1, height=H, width=W, seed=4)
+    ref, src = sc.cameras[0], t_stack(sc.cameras[1:])
+    img = torch.as_tensor(sc.images)
+    ctx = build_cost_context(img[0], img[1:], ref, src, 5.0, 3.0,
+                             backend="fused", color_only_weights=True)
+    rng = np.random.default_rng(K + n_extra)
+    ax = torch.as_tensor(rng.integers(0, W, (A, K)), dtype=torch.int32)
+    ay = torch.as_tensor(rng.integers(0, H, (A, K)), dtype=torch.int32)
+    ref_a = img[0].reshape(-1)[(ay * W + ax).long()]
+    sees = torch.as_tensor(rng.uniform(size=(V, A, K)) < 0.85)
+    sees[1, :, :10] = False
+    af = AnchorFields(
+        ax=ax, ay=ay, rax=(ax.float() - ref.cx) / ref.fx,
+        ray=(ay.float() - ref.cy) / ref.fy,
+        valid=torch.as_tensor(rng.uniform(size=(A, K)) < 0.9), ref_a=ref_a,
+        w_col=torch.exp(-torch.abs(ref_a - torch.as_tensor(
+            rng.uniform(0, 255, (A, K)), dtype=torch.float32)) / 18.0),
+        sees=sees)
+    ok_k = torch.arange(K) < K - 20
+    xs, ys = _grid(H, W, "cpu")
+    plane = plane_from_normal_depth(torch.as_tensor(sc.gt_normal[0]),
+                                    torch.as_tensor(sc.gt_depth[0]), xs, ys,
+                                    ref).reshape(-1, 4)
+    planes = plane[torch.as_tensor(rng.integers(0, H * W, (S, K)))]
+    planes[..., 3] *= torch.as_tensor(1.0 + 0.1 * (rng.uniform(
+        size=(S, K)) - 0.5), dtype=torch.float32)
+    planes[0, ::3, 3] = 0.0
+    planes[1, ::4] = float("nan")
+    planes[2, ::5, 0] = float("inf")
+    words = None
+    if n_extra:
+        words = torch.as_tensor(rng.integers(0, 2 ** 24, (V, n_extra, A, K)),
+                                dtype=torch.int32)
+    return anchor_fused.kernel_args(ctx, planes, af, ok_k, words), ok_k
+
+
+@pytest.mark.parametrize("n_extra", [0, 2])
+def test_k4_plain_fixed_result_without_a_usable_anchor(n_extra):
+    """csrc/anchor.cu writes cost 0.0 and has false for a (k, v) whose
+    anchors all have bit v clear, without warping.  The plain version gives
+    exactly that, whatever the samples: at fill entries, at real pixels
+    whose anchors do not see the view, and under non-finite slot planes
+    (which give NaN samples elsewhere)."""
+    args, ok_k = _k4_fixed_problem(n_extra)
+    vbits, S = args[9], args[4].shape[0]
+    V = args[0].shape[0]
+    fixed = torch.stack([((vbits >> v) & 1).sum(0) == 0 for v in range(V)],
+                        -1)                                     # [K, V]
+    assert bool(fixed[~ok_k].all()) and bool(fixed[:10, 1].all())
+    assert not bool(fixed[ok_k].all())
+    out = anchor_fused.anchor_slot_costs(*args)
+    fx = fixed[None].expand(S, -1, -1)
+    assert bool((out.cost[fx] == 0.0).all())
+    assert not bool(out.has_anchors[fx].any())
+    # elsewhere the term has work, and the degenerate planes reach it
+    assert bool(out.has_anchors[~fx].any())
+    assert bool((out.cost[~fx] > 0.0).any())
+    assert not bool(torch.isfinite(args[4]).all())

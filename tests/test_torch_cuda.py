@@ -128,7 +128,9 @@ def ragged():
         torch.as_tensor(scene.gt_normal[0], device=dev), depth, xs, ys, ref)
     ctx = build_cost_context(img[0], img[1:], ref, src, 5.0, 3.0,
                              backend="fused")
-    return dict(dev=dev, ref=ref, src=src, depth=depth, plane=plane, ctx=ctx)
+    src_depths = torch.as_tensor(scene.gt_depth[1:], device=dev)
+    return dict(dev=dev, ref=ref, src=src, depth=depth, plane=plane, ctx=ctx,
+                img=img, src_depths=src_depths)
 
 
 def _k1(ctx, planes, par):
@@ -399,3 +401,162 @@ def test_warp_and_tap_passes_on_the_card(card):
         if st.use_APD:
             mode = "taps" if st.anchor_taps > 1 else "single tap"
             assert _build.MODE_LAUNCHES[f"anchor/{mode}"] == 2
+
+
+@pytest.mark.parametrize("K", [1, 61])
+@pytest.mark.parametrize("mode", ["fold", "per view", "parity0",
+                                  "parity1"])
+def test_geom_kernel_ragged_shape(ragged, mode, K):
+    """K3 at 37 x 101 (no whole 128-pixel block; an odd width, so one
+    color's last column is the padding column x = W), K = 1 or 61
+    disparity steps around the ground truth (the far steps give negative
+    and infinite depths), in each mode."""
+    r = ragged
+    dev = r["dev"]
+    gctx = build_geom_context(r["src_depths"], r["ref"], r["src"])
+    Hr, Wr = r["depth"].shape
+    par = int(mode[-1]) if mode.startswith("parity") else None
+    depth = r["depth"] if par is None else pack_parity(r["depth"], par)
+    fxbl = float(r["ref"].fx) * 0.3
+    ks = torch.arange(K, dtype=torch.float32, device=dev) - K // 2
+    dstack = (fxbl / (fxbl / depth[None] + ks[:, None, None])).contiguous()
+    fold = mode == "fold"
+    vw = torch.rand((Hr, Wr, V), generator=torch.Generator(
+        device=dev).manual_seed(K), device=dev) if fold else None
+    kw = dict(vweights=vw, fold=fold, parity=par)
+    key = "geom/" + ("fold" if fold else "per view" if par is None
+                     else "parity")
+    before = _build.MODE_LAUNCHES.get(key, 0)
+    got = geom_fused.geom_cost(gctx, dstack, **kw)
+    assert _build.MODE_LAUNCHES[key] == before + 1
+    want = geom_fused.geom_cost_plain(gctx, dstack, **kw)
+    Wp = Wr if par is None else (Wr + 1) // 2
+    assert tuple(got.shape) == ((K, Hr, Wp) if fold else (K, Hr, Wp, V))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    _agree(got, want)
+
+
+def _k4_random_args(dev, img, ref, ctx, plane, K, A, S, n_extra, fill,
+                    seed):
+    """K4's arguments at K random anchors per pixel (A of them), some
+    invalid, views unseen at random and view 1 unseen by every anchor of
+    pixels 0-9; the last ``fill`` entries are fill (no usable anchor); slot
+    planes near the ground truth with w = 0, NaN and infinite planes at
+    some pixels; random tap words with ``n_extra``."""
+    Hs, Ws = img.shape[-2:]
+    Vs = ctx.src_imgs.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    ax = (rand(A, K) * Ws).floor().to(torch.int32)
+    ay = (rand(A, K) * Hs).floor().to(torch.int32)
+    rax = (ax.float() - ref.cx) / ref.fx
+    ray = (ay.float() - ref.cy) / ref.fy
+    ref_a = img[0].reshape(-1)[(ay * Ws + ax).long()]
+    w_col = torch.exp(-torch.abs(ref_a - 255.0 * rand(A, K)) / 18.0)
+    vbits = torch.zeros((A, K), dtype=torch.int32, device=dev)
+    for v in range(Vs):
+        vbits |= (rand(A, K) < 0.85).to(torch.int32) << v
+    vbits *= (rand(A, K) < 0.9).to(torch.int32)
+    vbits[:, :10] &= ~2
+    vbits[:, K - fill:] = 0
+    pix = (rand(S, K) * Hs * Ws).floor().long()
+    planes = plane.reshape(-1, 4)[pix]
+    planes[..., 3] *= 1.0 + 0.1 * (rand(S, K) - 0.5)
+    planes[0, ::3, 3] = 0.0
+    planes[1, ::4] = float("nan")
+    planes[2, ::5, 0] = float("inf")
+    words, inv_f = None, None
+    if n_extra:
+        words = torch.randint(0, 2 ** 24, (Vs, n_extra, A, K), generator=g,
+                              device=dev, dtype=torch.int32)
+        inv_f = (ctx.inv_fx, ctx.inv_fy)
+    return (ctx.src_imgs, ctx.M, ctx.b, ctx.src_wh,
+            anchor_fused.slot_q(planes), rax.contiguous(), ray.contiguous(),
+            ref_a.contiguous(), w_col.contiguous(), vbits.contiguous(),
+            words, inv_f)
+
+
+def _k4_check(args, fixed_kv=None):
+    """K4 against its plain version: has equal, costs by _agree, and
+    cost 0 / has false exactly where ``fixed_kv`` [K, V]."""
+    mode = "anchor/taps" if args[10] is not None else "anchor/single tap"
+    before = _build.MODE_LAUNCHES.get(mode, 0)
+    got = anchor_fused.anchor_slot_costs(*args)
+    assert _build.MODE_LAUNCHES[mode] == before + 1
+    want = anchor_fused.anchor_slot_costs_plain(*args)
+    assert torch.equal(got.has_anchors, want.has_anchors)
+    assert torch.equal(torch.isnan(got.cost), torch.isnan(want.cost))
+    _agree(got.cost, want.cost)
+    if fixed_kv is not None:
+        fx = fixed_kv[None].expand_as(got.cost)
+        assert bool((got.cost[fx] == 0.0).all())
+        assert not bool(got.has_anchors[fx].any())
+    return got
+
+
+@pytest.mark.parametrize("n_extra", [0, 1, 2])
+@pytest.mark.parametrize("A", [7, 13])
+def test_anchor_kernel_degenerate_planes(ragged, A, n_extra):
+    """K4 with A not a multiple of 4 (groups of 4 and 3, or 5 and 4 and 4),
+    a ragged K = 333 whose last 41 entries are fill, 10 slot planes of
+    which three are degenerate (w = 0, NaN, infinite n) at some pixels."""
+    r = ragged
+    ctx = build_cost_context(r["img"][0], r["img"][1:], r["ref"], r["src"],
+                             5.0, 3.0, backend="fused",
+                             color_only_weights=True)
+    args = _k4_random_args(r["dev"], r["img"], r["ref"], ctx, r["plane"],
+                           333, A, 10, n_extra, 41, seed=A + n_extra)
+    vbits = args[9]
+    fixed = torch.stack([((vbits >> v) & 1).sum(0) == 0 for v in range(V)],
+                        -1)
+    assert bool(fixed[-41:].all()) and bool(fixed[:10, 1].all())
+    got = _k4_check(args, fixed)
+    assert bool(got.has_anchors.any())
+
+
+@pytest.mark.parametrize("n_extra", [0, 2])
+def test_anchor_kernel_band_compaction(card, n_extra):
+    """K4 as the weak half-iteration calls it: a 10 % random weak mask,
+    the anchors find_anchors gives it on the ground-truth planes, compacted
+    on one color by _band_compact at the path's budget (half the packed
+    grid: a ragged suffix of fill entries), the bench scene's tap words."""
+    from dvpmvs_torch.config import PixelState
+    from dvpmvs_torch.engine.patchmatch import _band_compact, _weak_budget
+    from dvpmvs_torch.kernels.deformable import (anchor_fields_at,
+                                                 gather_tap_words,
+                                                 pack_tap_fields)
+    from dvpmvs_torch.kernels.weak import find_anchors, patch_candidates
+    from dvpmvs_torch.rng import TorchDraws
+    c = card
+    dev, ref = c["dev"], c["ref"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    weak = torch.where(torch.rand((H, W), generator=g, device=dev) < 0.1,
+                       int(PixelState.WEAK), int(PixelState.STRONG)
+                       ).to(torch.int8)
+    plane = c["planes"][0]
+    anchors = find_anchors(weak, plane, ref, TorchDraws(0, dev), (),
+                           rotate_time=4, depth_range=float(
+                               ref.depth_max - ref.depth_min))
+    ctx = build_cost_context(c["img"][0], c["img"][1:], ref, c["src"], 5.0,
+                             3.0, backend="fused", color_only_weights=True)
+    sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
+    pk1 = lambda a, axis=0: pack_parity(a, 1, axis)
+    weak_pk = pk1(weak == PixelState.WEAK)
+    SZ = weak_pk.numel()
+    flat_idx, ok_k = _band_compact(weak_pk, _weak_budget(SZ, 0.5))
+    assert 0 < int(ok_k.sum()) < ok_k.numel() and not bool(ok_k[-1])
+    gidx = torch.clamp(flat_idx, max=SZ - 1)
+    af = anchor_fields_at(ctx, anchors, sel, c["img"][0], 3.0, pk1, gidx)
+    planes = pk1(plane).reshape(SZ, 4)[gidx][None].repeat(10, 1, 1)
+    planes[..., 3] *= 1.0 + 0.1 * (torch.rand(planes.shape[:2], generator=g,
+                                              device=dev) - 0.5)
+    words = None
+    if n_extra:
+        tap_fields = pack_tap_fields(c["img"][0], patch_candidates(
+            c["img"][0], sel, 3.0, weak_radius=5), n_extra)
+        words = gather_tap_words(tap_fields, af,
+                                 pk1(c["img"][0]).reshape(-1)[gidx], 3.0, W,
+                                 n_extra)
+    args = anchor_fused.kernel_args(ctx, planes, af, ok_k, words)
+    got = _k4_check(args, (~ok_k)[:, None].expand(-1, V))
+    assert bool(got.has_anchors[:, ok_k].any())
