@@ -379,8 +379,9 @@ def k4_cell_rows(torch, dev, tag, weak, anchors, plane, sel, ref_img,
     """K4 against its plain version on the weak pixels of ``weak`` with
     ``anchors``, compacted on color 0 at the weak half-iterations' budget,
     10 slot planes around ``plane``: single tap and two taps.  The bound
-    counts the (k, v) with a usable anchor: the kernel writes the others'
-    fixed result without warping."""
+    counts the operations of the (k, v) with a usable anchor, and the bytes
+    that the function needs: the others' fixed result is written without
+    warping and without reading their planes, fields or tap words."""
     from dvpmvs_torch.config import PixelState
     from dvpmvs_torch.engine.packing import pack_parity
     from dvpmvs_torch.engine.patchmatch import _band_compact, _weak_budget
@@ -441,9 +442,12 @@ def k4_cell_rows(torch, dev, tag, weak, anchors, plane, sel, ref_img,
         ops = S_SLOTS * n_kv * (
             N_ANCHORS * (K4_OPS_PER_ANCHOR + n_taps * K4_OPS_PER_TAP)
             + 2 * K4_OPS_PER_GROUP + K4_OPS_PER_VIEW)
-        nbytes = (4 * (S_SLOTS * K_w * 3 + 5 * N_ANCHORS * K_w + V * H * W
-                       + V * n_taps * N_ANCHORS * K_w)
-                  + 5 * S_SLOTS * K_w * V)
+        # bytes as the operations: every output and every entry's view
+        # bits; the slot planes and the other anchor fields of the weak
+        # pixels only; the tap words of the usable (k, v) only; the sources
+        nbytes = (5 * S_SLOTS * K_w * V + 4 * N_ANCHORS * K_w
+                  + 4 * n_weak * (3 * S_SLOTS + 4 * N_ANCHORS)
+                  + 4 * n_taps * N_ANCHORS * n_kv + 4 * V * H * W)
         rows.append(("anchor", "anchor/taps" if n_taps else
                      "anchor/single tap", label, err, ms, plain,
                      *bound_ms(ops, nbytes), None))

@@ -37,20 +37,34 @@ class GeomContext:
     ry: torch.Tensor
     xs: torch.Tensor           # [H, W] pixel x grid
     ys: torch.Tensor
+    # [1 + V, 24] the reference, then the source cameras' rows (cam_rows),
+    # on the host: the CUDA kernel takes them as a launch argument
+    cam_rows: torch.Tensor
+
+
+def cam_rows(K, R, t, c) -> torch.Tensor:
+    """[..., 24] camera constants: K (9), R (9), t (3), c (3)."""
+    lead = K.shape[:-2]
+    return torch.cat([K.reshape(lead + (9,)), R.reshape(lead + (9,)), t, c],
+                     dim=-1).to(torch.float32).contiguous()
 
 
 def build_geom_context(src_depths: torch.Tensor, ref_cam: Camera,
                        src_cams: Camera) -> GeomContext:
     V, H, W = src_depths.shape
     xs, ys = _grid(H, W, src_depths.device)
+    ref_c, src_c = ref_cam.c, src_cams.c
+    rows = torch.cat([cam_rows(ref_cam.K, ref_cam.R, ref_cam.t, ref_c)[None],
+                      cam_rows(src_cams.K, src_cams.R, src_cams.t, src_c)])
     return GeomContext(
         src_depths=src_depths.to(torch.float32).contiguous(),
-        ref_K=ref_cam.K, ref_R=ref_cam.R, ref_t=ref_cam.t, ref_c=ref_cam.c,
+        ref_K=ref_cam.K, ref_R=ref_cam.R, ref_t=ref_cam.t, ref_c=ref_c,
         src_K=src_cams.K, src_R=src_cams.R, src_t=src_cams.t,
-        src_c=src_cams.c,
+        src_c=src_c,
         rx=(xs - ref_cam.cx) / ref_cam.fx,
         ry=(ys - ref_cam.cy) / ref_cam.fy,
         xs=xs, ys=ys,
+        cam_rows=rows.cpu(),
     )
 
 

@@ -27,13 +27,6 @@ from .ncc_fused import eval_coords
 _NAME = "geom"
 
 
-def _cam_rows(K, R, t, c) -> torch.Tensor:
-    """[..., 24] camera constants: K (9), R (9), t (3), c (3)."""
-    lead = K.shape[:-2]
-    return torch.cat([K.reshape(lead + (9,)), R.reshape(lead + (9,)), t, c],
-                     dim=-1).to(torch.float32).contiguous()
-
-
 def parity_context(gctx: GeomContext, parity: int) -> GeomContext:
     """``gctx`` with its per-pixel coordinate fields on one checkerboard
     color (x = 2 i + (y + parity) % 2, computed, not packed, so that the
@@ -95,20 +88,24 @@ def geom_cost(gctx: GeomContext, depth_stack: torch.Tensor,
     if V > 32:
         raise ValueError("geom_cost: at most 32 views on the card")
 
-    ref = _cam_rows(gctx.ref_K, gctx.ref_R, gctx.ref_t, gctx.ref_c)
-    srcs = _cam_rows(gctx.src_K, gctx.src_R, gctx.src_t, gctx.src_c)
+    cams = gctx.cam_rows
+    if tuple(cams.shape) != (1 + V, 24) or cams.device.type != "cpu":
+        raise ValueError("geom_cost: cam_rows must be [1 + V, 24] on the "
+                         "host")
     depths = depth_stack.contiguous()
     vw = torch.movedim(vweights, -1, 0).contiguous() if fold else None
-    _build.require_cuda_inputs(_NAME, [depths, gctx.src_depths, ref, srcs,
-                                       vw], depths.device)
+    _build.require_cuda_inputs(_NAME, [depths, gctx.src_depths, vw],
+                               depths.device)
     shape = (K, H, Wp) if fold else (K, H, Wp, V)
     out = torch.empty(shape, dtype=torch.float32, device=depths.device)
     fn = _build.library(_NAME).launch_geom
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     P = _build.ptr
-    err = fn(P(depths), P(gctx.src_depths), P(ref), P(srcs), P(vw), P(out),
+    # cams is read on the host when the kernel is launched (a by-value
+    # launch argument), so it may be freed right after
+    err = fn(P(depths), P(gctx.src_depths), P(cams), P(vw), P(out),
              K, V, H, W, Wp, -1 if parity is None else int(parity),
              ctypes.c_void_p(_build.stream_ptr(depths)))
     _build.check(err, _NAME, "fold" if fold else

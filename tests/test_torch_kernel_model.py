@@ -457,176 +457,110 @@ def test_build_flags_per_source():
     assert _build._target("geom") == before
 
 
+def test_included_header_is_part_of_the_library_hash(tmp_path, monkeypatch):
+    """A change to csrc/rcp.cuh rebuilds the four kernels that include it
+    (K1-K4) and no other."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    with open(csrc / "rcp.cuh", "a") as f:
+        f.write("// edited\n")
+    changed = {n for n in _build.SOURCES if _build._target(n) != before[n]}
+    assert changed == {"ncc_fused", "sweep", "geom", "anchor"}
+
+
 # --- K4 (csrc/anchor.cu) and K3 (csrc/geom.cu) -----------------------------
 #
 # Both keep their plain versions' rounding: every product and sum in the
 # plain order, the quotients of a shared refined reciprocal (the divides'
-# bits, test_shared_reciprocal_quotients_are_the_divides).  What they change
-# is how much of it they do: K4 writes the fixed result (cost 0, has false)
-# of a (k, v) with no usable anchor without warping, forms each anchor's
-# homography prefixes (m0 ra + m1 ya) + m2 and tap rays once for all slots
-# and counts in integers (n_sum = n_use); K3 reads each view's constants
-# once for several candidates.  The replays below follow the kernels'
-# structure at the main path's width and equal the plain versions bitwise.
-# The TPU kernel's composed form of K3 (two affine maps in inverse depth,
-# contracted; geom_pallas.py:78-113) does not: its nearest-pixel lookups
-# move, and the replay counts how far that is from the tolerance.
+# bits, test_shared_reciprocal_quotients_are_the_divides).  K4's sampler
+# departs from the plain version's steps (NaN-propagating clamps that may
+# turn -0 into +0, a floor without the conversion unit, the corner capped at
+# (W - 2, H - 2)); the test below holds those steps to the plain sampler
+# bitwise.  The TPU kernel's composed form of K3 (two affine maps in inverse
+# depth, contracted; geom_pallas.py:78-113) does not keep the rounding: its
+# nearest-pixel lookups move, and the replay counts how far that is from the
+# tolerance.
 
-def k4_model(src, M, b, src_wh, q, rax, ray, ref_a, w_col, vbits,
-             tap_words=None, inv_f=None):
-    """csrc/anchor.cu's arithmetic: cost and has [S, K, V]."""
-    from dvpmvs_torch.kernels.ncc import bilinear_sample
-    V = src.shape[0]
-    A = rax.shape[0]
-    G = max(A // 4, 1)
-    Ag = -(-A // G)
-    n_extra = 0 if tap_words is None else tap_words.shape[1]
-    q0, q1, q2 = q[..., 0], q[..., 1], q[..., 2]                # [S, K]
-    costs, hass = [], []
-    for v in range(V):
-        m = M[v].reshape(-1)
-        bv = b[v]
-        vis_v = ((vbits >> v) & 1).to(torch.bool)               # [A, K]
-
-        def prefix(ra, ya):
-            return [m[3 * c] * ra + m[3 * c + 1] * ya + m[3 * c + 2]
-                    for c in range(3)]
-
-        def warp_sample(pre, ra, ya):
-            s_i = q0 * ra + q1 * ya + q2
-            hx, hy, hz = (pre[c] - bv[c] * s_i for c in range(3))
-            front = hz > 0
-            hz = _guard(hz)
-            px, py = hx / hz, hy / hz
-            in_view = ((px >= 0) & (px < src_wh[v, 0]) & (py >= 0)
-                       & (py < src_wh[v, 1]) & front)
-            return bilinear_sample(src[v], px, py), in_view
-
-        zero = torch.zeros_like(q0)
-        c_num = zero
-        n_use = torch.zeros(q0.shape, dtype=torch.int32)
-        n_oov = torch.zeros_like(n_use)
-        for g in range(G):
-            a_lo, a_hi = g * Ag, min((g + 1) * Ag, A)
-            c0 = ref_a[a_lo]
-            mo = [zero] * 6
-            use0 = n_use.clone()
-
-            def accumulate(w, r, rr, s):
-                wr = w * r
-                for i, t in enumerate((w, wr, w * rr, w * s, w * (s * s),
-                                       wr * s)):
-                    mo[i] = mo[i] + t
-            for a in range(a_lo, a_hi):
-                ra, ya = rax[a], ray[a]
-                r = ref_a[a] - c0
-                smp, in_view = warp_sample(prefix(ra, ya), ra, ya)
-                use = vis_v[a] & in_view
-                accumulate(torch.where(use, w_col[a], zero), r, r * r,
-                           smp - c0)
-                n_use = n_use + use.to(torch.int32)
-                n_oov = n_oov + (vis_v[a] & ~in_view).to(torch.int32)
-                for t in range(n_extra):
-                    word = tap_words[v, t, a]
-                    dy, dx = (word & 0xF) - 8, ((word >> 4) & 0xF) - 8
-                    wt = ((word >> 8) & 0xFF).to(torch.float32) * (1.0 / 255.0)
-                    rtc = ((word >> 16) & 0xFF).to(torch.float32) - c0
-                    rat = ra + dx.to(torch.float32) * inv_f[0]
-                    yat = ya + dy.to(torch.float32) * inv_f[1]
-                    tap, _ = warp_sample(prefix(rat, yat), rat, yat)
-                    accumulate(torch.where(use, wt, zero), rtc, rtc * rtc,
-                               tap - c0)
-            n_g = (n_use - use0).to(torch.float32)
-            sw, s_r, s_r2, s_s, s_s2, s_rs = mo
-            inv = 1.0 / torch.clamp(sw, min=1e-30)
-            m_ref, m_src = s_r * inv, s_s * inv
-            var_r = s_r2 * inv - m_ref * m_ref
-            var_s = s_s2 * inv - m_src * m_src
-            cov = s_rs * inv - m_ref * m_src
-            ncc = cov / torch.clamp(torch.sqrt(torch.clamp(var_r * var_s,
-                                                           min=0.0)),
-                                    min=1e-30)
-            cg = torch.clamp(1.0 - ncc, 0.0, 2.0)
-            bad = (var_r < 1e-5) | (var_s < 1e-5) | (n_g < 2)
-            c_num = c_num + torch.where(bad, torch.full_like(cg, 2.0),
-                                        cg) * n_g
-        nu, no = n_use.to(torch.float32), n_oov.to(torch.float32)
-        c = c_num / torch.clamp(nu, min=1.0)
-        c = torch.where(nu < 4, torch.full_like(c, 2.0), c)
-        c = (c * nu + 2.0 * no) / torch.clamp(nu + no, min=1.0)
-        any_v = vis_v.any(0)[None]                               # [1, K]
-        costs.append(torch.where(any_v, c, zero))
-        hass.append(any_v & ((nu + no) > 0))
-    return torch.stack(costs, -1), torch.stack(hass, -1)
+def _fadd_rd(a, b):
+    """__fadd_rd: a + b rounded toward -inf to float32."""
+    d = a.double() + b
+    f = d.float()
+    return torch.where(f.double() > d, torch.nextafter(
+        f, torch.full_like(f, -float("inf"))), f)
 
 
-@pytest.fixture(scope="module")
-def k4_cell():
-    """chip_smoke.py's K4 kernel cell on the first 24 rows of the 608x800
-    bench scene: the anchors of a 30 % random weak mask on the ground-truth
-    planes, compacted on color 0 (half the packed grid: a suffix of fill
-    entries), 10 slot planes with w scaled by 1 +- 5 %, two taps."""
-    from dvpmvs_torch.config import PixelState
-    from dvpmvs_torch.engine.patchmatch import _band_compact, _weak_budget
-    from dvpmvs_torch.kernels import anchor_fused
-    from dvpmvs_torch.kernels.deformable import (anchor_fields_at,
-                                                 gather_tap_words,
-                                                 pack_tap_fields)
-    from dvpmvs_torch.kernels.weak import find_anchors, patch_candidates
-    from dvpmvs_torch.rng import TorchDraws
-    rows, width, views = 24, 800, 10
-    s = scene_inputs(608, width, views, seed=2, rows=rows)
-    ref, src, img = s["ref"], s["src"], s["img"]
-    sc = make_scene(num_views=5, height=608, width=width, seed=2)
-    xs, ys = _grid(rows, width, "cpu")
-    plane = plane_from_normal_depth(torch.as_tensor(sc.gt_normal[0][:rows]),
-                                    torch.as_tensor(sc.gt_depth[0][:rows]),
-                                    xs, ys, ref)
-    rng = np.random.default_rng(0)
-    weak = torch.as_tensor(np.where(rng.uniform(size=(rows, width)) < 0.3,
-                                    PixelState.WEAK, PixelState.STRONG)
-                           .astype(np.int8))
-    anchors = find_anchors(weak, plane, ref, TorchDraws(0, "cpu"), (),
-                           rotate_time=4, depth_range=float(
-                               ref.depth_max - ref.depth_min))
-    ref_img = img[0, :rows].contiguous()
-    ctx = build_cost_context(ref_img, img[s["reps"]].contiguous(), ref, src,
-                             5.0, 3.0, backend="fused",
-                             src_wh=torch.tensor([[width, 608.0]]).repeat(
-                                 views, 1), color_only_weights=True)
-    sel = torch.ones((rows, width, views), dtype=torch.bool)
-    pk1 = lambda a, axis=0: pack_parity(a, 0, axis)
-    weak_pk = pk1(weak == PixelState.WEAK)
-    SZ = weak_pk.numel()
-    flat_idx, ok_k = _band_compact(weak_pk, _weak_budget(SZ, 0.5))
-    gidx = torch.clamp(flat_idx, max=SZ - 1)
-    af = anchor_fields_at(ctx, anchors, sel, ref_img, 3.0, pk1, gidx)
-    planes = pk1(plane).reshape(SZ, 4)[gidx][None].repeat(10, 1, 1)
-    planes[..., 3] *= torch.as_tensor(
-        1.0 + 0.1 * (rng.uniform(size=planes.shape[:2]) - 0.5),
-        dtype=torch.float32)
-    tap_fields = pack_tap_fields(ref_img, patch_candidates(
-        ref_img, sel, 3.0, weak_radius=5), 2)
-    words = gather_tap_words(tap_fields, af, pk1(ref_img).reshape(-1)[gidx],
-                             3.0, width, 2)
-    return {n: anchor_fused.kernel_args(ctx, planes, af, ok_k, w)
-            for n, w in ((0, None), (2, words))}, ok_k
+def k4_sample(imgs, x, y, zero_to_pos):
+    """csrc/anchor.cu's sample(): imgs [V, H, W], x, y [V, N].  clamp_nan
+    (max.NaN then min.NaN; ``zero_to_pos``: the max turns -0 into +0),
+    floor_capped (x + 2^23 rounded down, fminf with W - 2 + 2^23: a NaN
+    coordinate caps to the corner), the four pixels (x0, y0) .. (x0 + 1,
+    y0 + 1) blended as the plain version blends."""
+    Vn, Hs, Ws = imgs.shape
+
+    def clamp_nan(v, hi):
+        r = torch.where(v < 0.0, torch.zeros_like(v), v)
+        if zero_to_pos:
+            r = torch.where(r == 0.0, torch.zeros_like(r), r)
+        return torch.where(r > hi, torch.full_like(r, hi), r)
+
+    def floor_capped(v, hi):
+        t = _fadd_rd(v, 2.0 ** 23)
+        hb = torch.full_like(t, hi + 2.0 ** 23)
+        t = torch.where(torch.isnan(t), hb, torch.minimum(t, hb))
+        return t - 2.0 ** 23
+    x = clamp_nan(x, Ws - 1.0)
+    y = clamp_nan(y, Hs - 1.0)
+    x0, y0 = floor_capped(x, Ws - 2.0), floor_capped(y, Hs - 2.0)
+    o = y0.to(torch.int64) * Ws + x0.to(torch.int64)
+    flat = imgs.reshape(Vn, -1)
+    g = lambda d: torch.gather(flat, 1, o + d)
+    fx, fy = x - x0, y - y0
+    top = g(0) * (1.0 - fx) + g(1) * fx
+    bot = g(Ws) * (1.0 - fx) + g(Ws + 1) * fx
+    return top * (1.0 - fy) + bot * fy
 
 
-@pytest.mark.parametrize("n_taps", [0, 2])
-def test_k4_arithmetic_equals_the_plain_version_at_full_width(k4_cell,
-                                                               n_taps):
-    from dvpmvs_torch.kernels import anchor_fused
-    cell, ok_k = k4_cell
-    args = cell[n_taps]
-    assert not bool(ok_k[-1]) and bool(ok_k[0])      # a suffix of fill
-    want = anchor_fused.anchor_slot_costs_plain(*args)
-    cost, has = k4_model(*args)
-    assert torch.equal(has, want.has_anchors)
-    assert torch.equal(torch.isnan(cost), torch.isnan(want.cost))
-    assert torch.equal(torch.nan_to_num(cost), torch.nan_to_num(want.cost))
-    assert spread(cost, want.cost, 1e-3) == (0.0, 0.0)
-    assert float((want.cost[:, ok_k] < 2.0).float().mean()) > 0.3
+_K4_SAMPLE_CASES = {
+    # (x, y) as fractions of (W - 1, H - 1), or the values themselves
+    "corner": [(1.0, 1.0)],
+    "edges": [(1.0, 0.3), (0.6, 1.0), (0.0, 1.0), (1.0, 0.0), (0.0, 0.0)],
+    "outside": [(1.7, 1.2), (-0.5, 1.5), (1.5, -3.0), (-1e9, 1e9)],
+    "nan": [(np.nan, 0.4), (0.4, np.nan), (np.nan, np.nan), (np.nan, 1.0),
+            (1.0, np.nan)],
+    "negative zero": [(-0.0, -0.0), (-0.0, 1.0), (1.0, -0.0), (-0.0, 0.5)],
+    "interior": [],
+}
+
+
+@pytest.mark.parametrize("case", list(_K4_SAMPLE_CASES))
+def test_k4_sampler_equals_the_plain_sampler(case):
+    """csrc/anchor.cu's sampler gives the plain bilinear_sample's bits: at
+    x = W - 1 and y = H - 1 (alone and both at once) its capped corner
+    blends pixels W - 2, W - 1 at weights 0, 1 where the plain version
+    blends W - 1 with itself; a NaN coordinate gives NaN; a -0 coordinate,
+    kept or turned into +0 by the clamp, gives the same value."""
+    rng = np.random.default_rng(11)
+    imgs = torch.as_tensor(rng.uniform(0, 255, (2, 7, 9)).astype(np.float32))
+    imgs[0, :, -1] = 0.0                     # zero pixels on the far edge
+    imgs[1, -1, :] = 0.0
+    pts = np.array(_K4_SAMPLE_CASES[case] or [(0.5, 0.5)], np.float64)
+    if case != "negative zero":
+        pts = pts * np.array([8.0, 6.0])
+    if case == "interior":
+        pts = rng.uniform(0, 1, (400, 2)) * np.array([8.0, 6.0])
+    x = torch.as_tensor(pts[:, 0].astype(np.float32))[None].repeat(2, 1)
+    y = torch.as_tensor(pts[:, 1].astype(np.float32))[None].repeat(2, 1)
+    want = _bilinear_sample_batch(imgs, x, y)
+    assert bool(torch.isnan(want).any()) == (case == "nan")
+    for zero_to_pos in (False, True):
+        got = k4_sample(imgs, x, y, zero_to_pos)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        assert torch.equal(got[keep].view(torch.int32),
+                           want[keep].view(torch.int32))
 
 
 def _geom_strip(rows=24):
@@ -656,65 +590,6 @@ def _geom_strip(rows=24):
                                   * ks10[:, None, None]).contiguous()
                    for c in (0, 1)})
     return gctx, stacks, torch.movedim(s["vw"], 0, -1)
-
-
-def k3_model(gctx, depths, vweights=None, fold=False, parity=None,
-             cands=4):
-    """csrc/geom.cu's arithmetic: the plain version's steps, each view's
-    constants read once for ``cands`` candidates, the fold summed from 0."""
-    from dvpmvs_torch.kernels.geom_fused import parity_context
-    from dvpmvs_torch.kernels.geom import _nearest_index
-    if parity is not None:
-        gctx = parity_context(gctx, parity)
-    V, H, W = gctx.src_depths.shape
-    rK, rR, rt, rc = (x.reshape(-1) for x in (gctx.ref_K, gctx.ref_R,
-                                              gctx.ref_t, gctx.ref_c))
-    xf, yf = gctx.xs, gctx.ys
-    rx = (xf - rK[2]) / rK[0]
-    ry = (yf - rK[5]) / rK[4]
-    g = lambda x: torch.where(torch.abs(x) < 1e-12,
-                              torch.full_like(x, 1e-12), x)
-    out = []
-    for k0 in range(0, depths.shape[0], cands):
-        d = depths[k0:k0 + cands]
-        px, py = d * rx, d * ry
-        wx = (rR[0] * px + rR[3] * py + rR[6] * d) + rc[0]
-        wy = (rR[1] * px + rR[4] * py + rR[7] * d) + rc[1]
-        wz = (rR[2] * px + rR[5] * py + rR[8] * d) + rc[2]
-        acc, per_view = torch.zeros_like(d), []
-        for v in range(V):
-            sK, sR = gctx.src_K[v].reshape(-1), gctx.src_R[v].reshape(-1)
-            st, sc = gctx.src_t[v], gctx.src_c[v]
-            cxx = (sR[0] * wx + sR[1] * wy + sR[2] * wz) + st[0]
-            cyy = (sR[3] * wx + sR[4] * wy + sR[5] * wz) + st[1]
-            czz = (sR[6] * wx + sR[7] * wy + sR[8] * wz) + st[2]
-            hz = g(sK[6] * cxx + sK[7] * cyy + sK[8] * czz)
-            sx = (sK[0] * cxx + sK[1] * cyy + sK[2] * czz) / hz
-            sy = (sK[3] * cxx + sK[4] * cyy + sK[5] * czz) / hz
-            flat = (_nearest_index(sy, H).to(torch.int64) * W
-                    + _nearest_index(sx, W))
-            sd = gctx.src_depths[v].reshape(-1)[flat]
-            bx = sd * (sx - sK[2]) / sK[0]
-            by = sd * (sy - sK[5]) / sK[4]
-            wx2 = (sR[0] * bx + sR[3] * by + sR[6] * sd) + sc[0]
-            wy2 = (sR[1] * bx + sR[4] * by + sR[7] * sd) + sc[1]
-            wz2 = (sR[2] * bx + sR[5] * by + sR[8] * sd) + sc[2]
-            rxx = (rR[0] * wx2 + rR[1] * wy2 + rR[2] * wz2) + rt[0]
-            ryy = (rR[3] * wx2 + rR[4] * wy2 + rR[5] * wz2) + rt[1]
-            rzz = (rR[6] * wx2 + rR[7] * wy2 + rR[8] * wz2) + rt[2]
-            hz2 = g(rK[6] * rxx + rK[7] * ryy + rK[8] * rzz)
-            dx = xf - (rK[0] * rxx + rK[1] * ryy + rK[2] * rzz) / hz2
-            dy = yf - (rK[3] * rxx + rK[4] * ryy + rK[5] * rzz) / hz2
-            dist = torch.sqrt(dx * dx + dy * dy)
-            cost = torch.clamp(dist, max=3.0)
-            cost = torch.where((sd <= 0) | ~torch.isfinite(dist),
-                               torch.full_like(cost, 3.0), cost)
-            if fold:
-                acc = acc + vweights[..., v] * cost
-            else:
-                per_view.append(cost)
-        out.append(acc if fold else torch.stack(per_view, -1))
-    return torch.cat(out)
 
 
 def k3_composed(gctx, depths, vweights=None, fold=False, parity=None):
@@ -774,21 +649,6 @@ def k3_composed(gctx, depths, vweights=None, fold=False, parity=None):
 @pytest.fixture(scope="module")
 def geom_strip():
     return _geom_strip()
-
-
-@pytest.mark.parametrize("mode", ["fold", "per view", "parity0",
-                                  "parity1"])
-def test_k3_arithmetic_equals_the_plain_version_at_full_width(geom_strip,
-                                                               mode):
-    from dvpmvs_torch.kernels.geom_fused import geom_cost_plain
-    gctx, stacks, vw = geom_strip
-    fold = mode == "fold"
-    kw = dict(vweights=vw if fold else None, fold=fold,
-              parity=int(mode[-1]) if mode.startswith("parity") else None)
-    want = geom_cost_plain(gctx, stacks[mode], **kw)
-    got = k3_model(gctx, stacks[mode], **kw)
-    assert torch.equal(got, want)
-    assert spread(got, want, 1e-3) == (0.0, 0.0)
 
 
 @pytest.mark.parametrize("mode", ["fold", "per view", "parity0",
