@@ -41,10 +41,19 @@
 7. path phase, the sparse-patch taps: the APD REFINE_ITER of step 5 with
    anchor_taps=3 on the bench scene (acc2 floor) and on the band scene (its
    region's acc2 beside step 5's); checks that K4's tap mode was launched;
-8. with ``--profile`` only: runs each pass once more under torch.profiler
+8. scene phase: the port's CLI ``scene`` command on an 11-view 608x800
+   synthetic scene folder (10 sources per view, the defaults: round 0's
+   four passes over every view, then ETH3D fusion to APD.ply, with a
+   checkpoint); prints each pass's wall, the fusion wall, the scene's
+   wall, the point count, each view's acc2, the share of points near a
+   ground-truth plane and the host time of the Canny prior; checks that
+   K1, K2 and K3 (per view: the runner passes radius maps, so no sweep
+   takes the fold) were launched in the run and that a resumed run runs
+   no pass and writes the same PLY;
+9. with ``--profile`` only: runs each pass once more under torch.profiler
    and prints the device's busy time and the device time by kernel, and
    the same for the anchor search and one RANSAC fit on their own;
-9. prints one JSON line with the kernels' numbers, the card line, and as
+10. prints one JSON line with the kernels' numbers, the card line, and as
    the last line {"ok": true, "device": {...}}.
 
 Every path step resets the launch counts just before it and reads them just
@@ -975,6 +984,136 @@ def profile_phase(torch, passes):
     return result
 
 
+SCENE_VIEWS = 11             # 10 sources per problem: the V of the phases
+
+
+def scene_phase(torch):
+    """The scene command on the card: an 11-view 608x800 synthetic scene
+    (make_scene seed 2) written with write_scene_dir to a temporary folder,
+    then ``dvpmvs_torch.cli.run scene <folder> --checkpoint --metrics`` in
+    this process with its defaults (the card, the fused backend, 3
+    iterations, 3 geometric passes, 10 sources): round 0 only at <= 800
+    px, 11 views x 4 passes, then ETH3D fusion of 11 x 10 pairs to
+    APD.ply.  Checks the launches of K1, K2 and K3 (per view) in the run,
+    each view's acc2 (view 0 at least ACC2_FLOOR), the PLY read back,
+    the checkpoint files, and that a resumed run runs no pass and writes
+    the same PLY.  Also times the Canny prior on the host."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    from dvpmvs_torch.cli.run import main as cli
+    from dvpmvs_torch.io import read_dmb, read_ply
+    from dvpmvs_torch.kernels import _build
+    from dvpmvs_torch.priors.edges import edge_segment
+    from dvpmvs_torch.sched import runner as runner_mod
+    from dvpmvs_torch.utils.synthetic import make_scene, write_scene_dir
+
+    t_phase = time.perf_counter()
+    scene = make_scene(num_views=SCENE_VIEWS, height=H, width=W, seed=2)
+    canny = []
+    for v in range(3):
+        t0 = time.perf_counter()
+        edge_segment(0, scene.images[v], mode=0, use_canny=True)
+        canny.append(time.perf_counter() - t0)
+    canny_s = sorted(canny)[1]
+    print(f"  Canny edge prior (host, {H}x{W}): median of 3 {canny_s:.4f} s "
+          f"({', '.join(f'{c:.4f}' for c in canny)})", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = write_scene_dir(scene, Path(tmp) / "dense")
+        out = folder / "APD"
+        argv = ["scene", str(folder), "--checkpoint", "--metrics"]
+        # the time inside run_pass, so that the rest of a pass wall is the
+        # runner's host work (resizes, edges, visibility cleanup, copies)
+        inner = []
+
+        def timed_pass(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run_pass(*args, **kw)
+            torch.cuda.synchronize()
+            inner.append(time.perf_counter() - t)
+            return out
+
+        run_pass = runner_mod.run_pass
+        runner_mod.run_pass = timed_pass
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            cli(argv)
+        finally:
+            runner_mod.run_pass = run_pass
+        torch.cuda.synchronize()
+        scene_s = time.perf_counter() - t0
+        launches = {k: n for k, n in counts().items() if n}
+        # K3's fold runs only in a sweep without a radius map; the runner
+        # passes each view's radius map to its REFINE_ITER, as the
+        # reference does, so its sweeps take K3's per-view mode
+        require_launched(launches, ("ncc_fused", "sweep", "geom/per view"),
+                         "the scene run")
+        metrics = json.loads((out / "metrics.json").read_text())["timings"]
+        walls = {k: v["total_s"] for k, v in metrics.items()}
+        expect = [f"round0/pass{i}" for i in range(4)] + ["fusion"]
+        if sorted(walls) != sorted(expect):
+            raise AssertionError(f"scene run spans {sorted(walls)}")
+        accs = []
+        for v in range(SCENE_VIEWS):
+            d = out / f"{v:08d}"
+            for name in ("depths.dmb", "depths_geom.dmb", "weak.png"):
+                if not (d / name).exists():
+                    raise AssertionError(f"view {v}: no {name}")
+            accs.append(acc2(read_dmb(d / "depths_geom.dmb"),
+                             scene.gt_depth[v]))
+        if not (out / "progress.json").exists():
+            raise AssertionError("no progress.json")
+        pts, cols = read_ply(out / "APD.ply")
+        if len(pts) == 0 or not np.isfinite(pts).all():
+            raise AssertionError(f"APD.ply: {len(pts)} points")
+        dist = np.abs(pts.astype(np.float64) @ scene.planes_n.T
+                      + scene.planes_d[None]).min(1)
+        on_plane = float((dist < 0.06).mean())
+        print(f"  scene run: {scene_s:.2f} s, passes "
+              + ", ".join(f"{k} {walls[k]:.3f} s" for k in expect[:4])
+              + f", fusion {walls['fusion']:.3f} s; {len(pts)} points, "
+              f"{on_plane:.4f} within 0.06 of a ground-truth plane; "
+              f"launches {launches}", flush=True)
+        print("  acc2 by view: " + ", ".join(f"{a:.4f}" for a in accs),
+              flush=True)
+        in_pass = [sum(inner[i * SCENE_VIEWS:(i + 1) * SCENE_VIEWS])
+                   for i in range(4)]
+        print("  inside run_pass by pass: "
+              + ", ".join(f"{t:.3f} s" for t in in_pass)
+              + f"; view passes median {sorted(inner)[len(inner) // 2]:.3f}"
+              f" s; the runner's host work "
+              + ", ".join(f"{walls[k] - t:.3f} s"
+                          for k, t in zip(expect, in_pass)), flush=True)
+        if accs[0] < ACC2_FLOOR:
+            raise AssertionError(f"scene view 0 acc2 {accs[0]:.4f} < "
+                                 f"{ACC2_FLOOR}")
+        ply = (out / "APD.ply").read_bytes()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        cli(argv[:2] + ["--resume", "--metrics"])
+        resume_s = time.perf_counter() - t0
+        resumed = json.loads((out / "metrics.json").read_text())["timings"]
+        if sorted(resumed) != ["fusion"]:
+            raise AssertionError(f"the resumed run ran {sorted(resumed)}")
+        if (out / "APD.ply").read_bytes() != ply:
+            raise AssertionError("the resumed run wrote another APD.ply")
+        print(f"  resumed: no pass, the same APD.ply, {resume_s:.2f} s",
+              flush=True)
+    summary = {"views": SCENE_VIEWS, "scene_s": scene_s, "pass_s": walls,
+               "run_pass_s": in_pass, "view_pass_s": inner,
+               "points": int(len(pts)), "on_plane_share": on_plane,
+               "acc2_views": accs, "canny_host_s": canny_s,
+               "canny_host_s_runs": canny, "resume_s": resume_s,
+               "launches": launches,
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"  scene phase: {summary['phase_s']:.1f} s", flush=True)
+    return launches, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1022,6 +1161,9 @@ def main() -> int:
     passes.update(taps_passes)
     print("kernel phase, K4 at the bench scene's own compaction:", flush=True)
     rows += k4_path_rows(torch, dev, scene, first)
+    print(f"scene phase (the scene command, {SCENE_VIEWS} views, {H}x{W}, "
+          f"V={V}, round 0, ETH3D fusion):", flush=True)
+    runs["scene"], summary["scene"] = scene_phase(torch)
     if "--profile" in sys.argv[1:]:
         print("profile phase (torch.profiler, one run of each pass):",
               flush=True)

@@ -109,6 +109,23 @@ class PMDynamic:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass
+class SceneConfig:
+    """Host-side schedule options: the fields of ``dvpmvs.config.SceneConfig``
+    that ``SceneRunner`` reads, with their defaults.  The port runs the
+    serial schedule on one device: ``mesh_views`` and ``mesh_tiles`` above 1
+    and ``show_medium_result`` raise in ``SceneRunner``."""
+
+    max_base_size: int = 800           # pyramid: halve until maxdim <= this
+    geometric_passes: int = 3          # geometric passes per round
+    show_medium_result: bool = False
+    full_res_round: bool = False       # add the full-resolution round the
+                                       # reference never runs (main.cpp:450)
+    seed: int = 0
+    mesh_views: int = 1                # devices along the view axis
+    mesh_tiles: int = 1                # devices along the image-row axis
+
+
 # Reference schedule (main.cpp:450-512), as dvpmvs.config.round_pass_params.
 def round_pass_params(
     round_idx: int,

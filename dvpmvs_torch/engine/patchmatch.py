@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import fmath
 from .. import resolve_device
 from ..config import PMDynamic, PMStatic, PixelState, RunState
 from ..geometry.camera import Camera
@@ -60,7 +61,7 @@ from .state import PassOutput, PMState
 
 def _ray(rx, ry):
     r = torch.stack([rx, ry, torch.ones_like(rx)], dim=-1)
-    return r / torch.linalg.norm(r, dim=-1, keepdim=True)
+    return r / fmath.norm(r, dim=-1, keepdim=True)
 
 
 def _initial_cost_first(ctx: CostContext, plane, top_k: int):

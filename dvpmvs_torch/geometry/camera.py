@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -63,3 +64,17 @@ def stack_cameras(cams: Sequence[Camera]) -> Camera:
     """Stack single cameras into a view-batched Camera ([V, ...] leading)."""
     return Camera(**{f.name: torch.stack([getattr(c, f.name) for c in cams])
                      for f in dataclasses.fields(Camera)})
+
+
+def scale_camera(cam: Camera, scale_x: float, scale_y: float) -> Camera:
+    """Rescale intrinsics for a resized image (reference APD.cpp:1139-1143).
+
+    Only fx,cx (by scale_x) and fy,cy (by scale_y) change; the products are
+    taken in float32 numpy, as ``dvpmvs.geometry.camera.scale_camera`` does.
+    """
+    K = cam.K.cpu().numpy().copy()
+    K[..., 0, 0] *= scale_x
+    K[..., 0, 2] *= scale_x
+    K[..., 1, 1] *= scale_y
+    K[..., 1, 2] *= scale_y
+    return dataclasses.replace(cam, K=torch.as_tensor(K, device=cam.device))

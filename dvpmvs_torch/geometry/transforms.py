@@ -15,6 +15,7 @@ from typing import Tuple
 
 import torch
 
+from .. import fmath
 from ..rng import DrawSource, KeyPath, split
 from .camera import Camera
 
@@ -25,7 +26,7 @@ def view_ray(x, y, cam: Camera, normalize: bool = True) -> torch.Tensor:
     ry = (y - cam.cy) / cam.fy
     ray = torch.stack([rx, ry, torch.ones_like(rx)], dim=-1)
     if normalize:
-        ray = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+        ray = ray / fmath.norm(ray, dim=-1, keepdim=True)
     return ray
 
 
@@ -127,5 +128,5 @@ def random_unit_normals(draws: DrawSource, path: KeyPath, shape
     z ~ U(-1, 1), phi ~ U(0, 2pi), n = (r cos phi, r sin phi, z)."""
     z = draws.uniform(split(path, 2, 0), shape, -1.0, 1.0)
     phi = draws.uniform(split(path, 2, 1), shape, 0.0, 2.0 * math.pi)
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    r = fmath.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([r * fmath.cos(phi), r * fmath.sin(phi), z], dim=-1)

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import fmath
 from .ncc import (COST_MAX, CostContext, _guard, bilinear_sample, ncc_cost,
                   warp_field)
 from .sampling import identity_pack
@@ -95,7 +96,7 @@ def anchor_cost_term(ctx: CostContext, plane: torch.Tensor,
     var_r = m_ref2 - m_ref * m_ref
     var_s = m_src2 - m_src * m_src
     cov = m_rs - m_ref * m_src
-    ncc = cov / torch.clamp(torch.sqrt(torch.clamp(var_r * var_s, min=0.0)),
+    ncc = cov / torch.clamp(fmath.sqrt(torch.clamp(var_r * var_s, min=0.0)),
                             min=1e-30)
     c = torch.clamp(1.0 - ncc, 0.0, COST_MAX)
     bad = (var_r < _K_MIN_VAR) | (var_s < _K_MIN_VAR) | (
@@ -187,7 +188,7 @@ def gather_tap_words(tap_fields: torch.Tensor, af: AnchorFields,
     for t in range(n_extra):
         sub = (tw >> (16 * t)) & 0xFFFF
         refq = (sub >> 8) & 0xFF
-        w = torch.exp(-torch.abs(refq.to(torch.float32) - ref_c[None, None])
+        w = fmath.exp(-torch.abs(refq.to(torch.float32) - ref_c[None, None])
                       / (2.0 * sc * sc))
         wq = torch.round(w * 255.0).to(torch.int32)
         out.append((sub & 0xFF) | (wq << 8) | (refq << 16))
@@ -221,7 +222,7 @@ def anchor_fields_at(ctx: CostContext, anchors: AnchorResult,
     ref_c = pk(ref_img, 0).reshape(-1)[gidx]
     sc = torch.as_tensor(sigma_color, dtype=torch.float32,
                          device=ref_img.device)
-    w_col = torch.exp(-torch.abs(ref_a - ref_c[None]) / (2.0 * sc * sc))
+    w_col = fmath.exp(-torch.abs(ref_a - ref_c[None]) / (2.0 * sc * sc))
     sel_bits = torch.zeros((H, W), dtype=torch.int32, device=ref_img.device)
     for v in range(V):
         sel_bits = sel_bits | (sel_views[..., v].to(torch.int32) << v)
@@ -320,7 +321,7 @@ def anchor_term_from_q(src, M, b, src_wh, q, rax, ray, ref_a, w_col,
             var_r = m_ref2 - m_ref * m_ref
             var_s = m_src2 - m_src * m_src
             cov = m_rs - m_ref * m_src
-            ncc = cov / torch.clamp(torch.sqrt(torch.clamp(var_r * var_s,
+            ncc = cov / torch.clamp(fmath.sqrt(torch.clamp(var_r * var_s,
                                                            min=0.0)),
                                     min=1e-30)
             cg = torch.clamp(1.0 - ncc, 0.0, COST_MAX)

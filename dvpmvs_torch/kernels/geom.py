@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from .. import fmath
 from ..geometry.camera import Camera
 from .ncc import _grid
 
@@ -139,7 +140,7 @@ def geom_consistency_cost(gctx: GeomContext, depth: torch.Tensor
     bxp = hx2 / hz2
     byp = hy2 / hz2
 
-    dist = torch.sqrt((gctx.xs - bxp) ** 2 + (gctx.ys - byp) ** 2)
+    dist = fmath.sqrt((gctx.xs - bxp) ** 2 + (gctx.ys - byp) ** 2)
     cost = torch.clamp(dist, max=GEOM_MAX)
     invalid = (sd <= 0.0) | ~torch.isfinite(dist)
     cost = torch.where(invalid, torch.full_like(cost, GEOM_MAX), cost)

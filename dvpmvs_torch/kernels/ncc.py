@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import fmath
 from ..geometry.camera import Camera
 from ..geometry.transforms import homography_terms
 
@@ -197,21 +198,24 @@ def build_cost_context(
         dx = gx * float(strong_radius)
         dy = gy * float(strong_radius)
         ref_t = bilinear_sample(ref_img, (xs + dx), (ys + dy))
-        spatial = torch.hypot(dx, dy)
+        offs = tap_grid().astype(np.float64) * float(strong_radius)
+        spatial = torch.as_tensor(
+            np.hypot(offs[:, 0], offs[:, 1]).astype(np.float32),
+            device=dev)[:, None, None]
     else:
         dx = gx * radius
         dy = gy * radius
         ref_t = _bilinear_sample_batch(ref_img[None], (xs + dx)[None],
                                        (ys + dy)[None])[0]
-        spatial = torch.hypot(dx, dy)
+        spatial = fmath.hypot(dx, dy)
     # reference weight: exp(-dist/(2 s_sp^2) - |dI|/(2 s_c^2)), with the
     # NON-squared distances of APD.cu:776-781; the weak-pixel cost drops the
     # spatial term (ComputeBilateralWeight_YZL, APD.cu:783-788)
     if color_only_weights:
-        w_taps = torch.exp(-torch.abs(ref_t - ref_img)
+        w_taps = fmath.exp(-torch.abs(ref_t - ref_img)
                            / (2.0 * sigma_color * sigma_color))
     else:
-        w_taps = torch.exp(-spatial / (2.0 * sigma_spatial * sigma_spatial)
+        w_taps = fmath.exp(-spatial / (2.0 * sigma_spatial * sigma_spatial)
                            - torch.abs(ref_t - ref_img)
                            / (2.0 * sigma_color * sigma_color))
     wref_taps = w_taps * ref_t
@@ -346,7 +350,7 @@ def _ncc_from_moments(inv, sum_wref, sum_wref2, s1, s2, s3, in_view
     var_ref = m_ref2 - m_ref * m_ref
     var_src = m_src2 - m_src * m_src
     covar = m_refsrc - m_ref * m_src
-    var_prod = torch.sqrt(torch.clamp(var_ref * var_src, min=0.0))
+    var_prod = fmath.sqrt(torch.clamp(var_ref * var_src, min=0.0))
     ncc = covar / torch.clamp(var_prod, min=1e-30)
     cost = torch.clamp(1.0 - ncc, 0.0, COST_MAX)
     degenerate = (var_ref < _K_MIN_VAR) | (var_src < _K_MIN_VAR)

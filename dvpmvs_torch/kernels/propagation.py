@@ -19,6 +19,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import fmath
 from .ncc import COST_MAX
 
 
@@ -279,7 +280,7 @@ def mhjvs(r: torch.Tensor, cost_array, flags, prior, iter_idx):
     below = ca < cost_threshold
     count = torch.sum(below, dim=0).to(torch.float32)
     count_false = torch.sum(ca > 1.2, dim=0)
-    tmpw = torch.sum(torch.where(below, torch.exp(ca * ca / -0.18),
+    tmpw = torch.sum(torch.where(below, fmath.exp(ca * ca / -0.18),
                                  torch.zeros_like(ca)), dim=0)
     fallback = float(np.exp(np.float32(cost_threshold * cost_threshold)
                             / np.float32(-0.32), dtype=np.float32))

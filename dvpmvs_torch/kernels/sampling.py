@@ -15,6 +15,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .. import fmath
 from ..geometry.camera import Camera
 from ..geometry.transforms import dist_to_origin, random_unit_normals
 from ..rng import DrawSource, KeyPath
@@ -28,7 +29,7 @@ def identity_pack(arr: torch.Tensor, axis: int = 0) -> torch.Tensor:
 
 
 def _normalize(v, dim=-1):
-    return v / torch.clamp(torch.linalg.norm(v, dim=dim, keepdim=True),
+    return v / torch.clamp(fmath.norm(v, dim=dim, keepdim=True),
                            min=1e-12)
 
 
@@ -41,7 +42,7 @@ def view_direction_set(depth, sel_views, rx, ry, ref_cam: Camera,
     ones = torch.ones_like(rx)
 
     def norm3(x, y, z):
-        inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-24))
+        inv = fmath.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-24))
         return torch.stack([x * inv, y * inv, z * inv])
 
     ray_ref = norm3(rx, ry, ones)
@@ -110,9 +111,9 @@ def perturbed_normal(draws: DrawSource, path: KeyPath, normal, rx, ry,
     ang = pk(draws.uniform(path, (3,) + full_hw, -perturbation,
                            perturbation), 1)
     a1, a2, a3 = ang[0], ang[1], ang[2]
-    s1, c1 = torch.sin(a1), torch.cos(a1)
-    s2, c2 = torch.sin(a2), torch.cos(a2)
-    s3, c3 = torch.sin(a3), torch.cos(a3)
+    s1, c1 = fmath.sin(a1), fmath.cos(a1)
+    s2, c2 = fmath.sin(a2), fmath.cos(a2)
+    s3, c3 = fmath.sin(a3), fmath.cos(a3)
     nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
     px = (c1 * c2) * nx + (c1 * s2 * s3 - s1 * c3) * ny \
         + (c1 * s2 * c3 + s1 * s3) * nz

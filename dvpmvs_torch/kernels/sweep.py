@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import fmath
 from ..config import PixelState
 from ..geometry.camera import Camera
 from .gatherfree import take0
@@ -62,7 +63,7 @@ def _field_sweep_costs(ctx: CostContext, gctx, geom_factor, depth, baseline,
 
 def _mean_selected_baseline(sel_views, ref_cam: Camera, src_cams: Camera):
     """Per-pixel mean ||C_ref - C_src|| over selected views -> [H, W]."""
-    bl = torch.linalg.norm(ref_cam.c[None, :] - src_cams.c, dim=-1)  # [V]
+    bl = fmath.norm(ref_cam.c[None, :] - src_cams.c, dim=-1)  # [V]
     sel = sel_views.to(torch.float32)
     cnt = torch.sum(sel, dim=-1)
     tot = torch.sum(sel * bl[None, None, :], dim=-1)
@@ -145,7 +146,7 @@ def classify_from_sweep(p_costs, depth, nsel, radius_steps: int,
     single = peak_count == 1
     single_strong = min_cost <= 0.15
     others = interior & (idx != min_peak[None])
-    var = torch.sqrt(torch.sum(
+    var = fmath.sqrt(torch.sum(
         torch.where(others, (p_costs - min_cost) ** 2,
                     torch.zeros_like(p_costs)), dim=0))
     var = var / torch.clamp(peak_count - 1, min=1)

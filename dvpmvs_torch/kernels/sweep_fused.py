@@ -28,6 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import fmath
 from . import _build
 from .ncc import (COST_MAX, _K_MIN_VAR, _TAP_AXIS, _bilinear_sample_batch,
                   _grid, _guard, tap_moments)
@@ -84,7 +85,7 @@ def sweep_weighted_ncc_plain(invd0, invbl, vweights, w_taps, wref_taps, wsums,
         m_src = s1 * inv
         var_src = s2 * inv - m_src * m_src
         covar = s3 * inv - m_ref * m_src
-        var_prod = torch.sqrt(torch.clamp(var_ref * var_src, min=0.0))
+        var_prod = fmath.sqrt(torch.clamp(var_ref * var_src, min=0.0))
         ncc = covar / torch.clamp(var_prod, min=1e-30)
         cost = torch.clamp(1.0 - ncc, 0.0, COST_MAX)
         in_view = (pxu >= 0) & (pxu < sw) & (pyu >= 0) & (pyu < sh) & (hz > 0)

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import fmath
 from ..config import PixelState
 from ..geometry.camera import Camera
 from ..rng import DrawSource, KeyPath, fold_in
@@ -40,18 +41,6 @@ def _int_grid(H: int, W: int, device):
     ys = torch.arange(H, dtype=torch.int32, device=device)[:, None]
     xs = torch.arange(W, dtype=torch.int32, device=device)[None, :]
     return xs.expand(H, W), ys.expand(H, W)
-
-
-def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """hypot by the formula jnp.hypot uses (max * sqrt(1 + (min/max)^2)),
-    so that threshold tests on it round as in JAX."""
-    a, b = torch.abs(a), torch.abs(b)
-    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
-    zero = hi == 0
-    q = lo / torch.where(zero, torch.ones_like(hi), hi)
-    out = torch.where(zero, hi, hi * torch.sqrt(1 + q * q))
-    return torch.where(torch.isinf(a) | torch.isinf(b),
-                       torch.full_like(out, float("inf")), out)
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +216,7 @@ def edge_complexity(edge: torch.Tensor, radius: int = 5) -> torch.Tensor:
                                     torch.zeros_like(e))
             tot = tot + inb.to(torch.float32)
     density = cnt / torch.clamp(tot, min=1.0)
-    return torch.sigmoid(25.0 * (density - 0.35))
+    return fmath.sigmoid(25.0 * (density - 0.35))
 
 
 def demote_detail(weak: torch.Tensor, edge: Optional[torch.Tensor],
@@ -277,7 +266,7 @@ def patch_candidates(ref_img: torch.Tensor, sel_views: torch.Tensor,
     weights = []
     for dx, dy in offsets:
         pix = shift_map(ref_img, dx, dy)
-        wgt = torch.exp(-torch.abs(pix - ref_img) / (2.0 * sc * sc))
+        wgt = fmath.exp(-torch.abs(pix - ref_img) / (2.0 * sc * sc))
         weights.append((_in_bounds_mask(H, W, dx, dy, dev), wgt))
     neg_inf = torch.full((H, W), float("-inf"), device=dev)
     out = []
@@ -347,7 +336,7 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _norm3(n: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(_dot(n, n))
+    return fmath.sqrt(_dot(n, n))
 
 
 def _pick(field: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -460,7 +449,7 @@ def find_anchors(
             # angular-cone test (APD.cu:3437-3441) gates the redirects
             vx = (cx - xs).to(torch.float32)
             vy = (cy - ys).to(torch.float32)
-            vn = torch.clamp(_hypot(vx, vy), min=1e-6)
+            vn = torch.clamp(fmath.hypot(vx, vy), min=1e-6)
             in_cone = (vx * ux + vy * uy) / vn > cone_cos
             ok = (cand_strong | (red_ok & in_cone)) & (~blocked | bypass)
             take = ok & ~found
@@ -720,16 +709,16 @@ def ransac_fit_plane(
         Axx, Ayy = tri_xy(0)
         Bxx, Byy = tri_xy(1)
         Cxx, Cyy = tri_xy(2)
-        la = _hypot(Axx - Bxx, Ayy - Byy)
-        lb = _hypot(Bxx - Cxx, Byy - Cyy)
-        lc = _hypot(Cxx - Axx, Cyy - Ayy)
+        la = fmath.hypot(Axx - Bxx, Ayy - Byy)
+        lb = fmath.hypot(Bxx - Cxx, Byy - Cyy)
+        lc = fmath.hypot(Cxx - Axx, Cyy - Ayy)
         p = (la + lb + lc) / 2.0
-        S = torch.sqrt(torch.clamp(p * (p - la) * (p - lb) * (p - lc),
+        S = fmath.sqrt(torch.clamp(p * (p - la) * (p - lb) * (p - lc),
                                    min=0.0))
-        radius = torch.floor(torch.sqrt(S) / 2.0)
-        dmin = torch.minimum(torch.minimum(_hypot(Axx - xs, Ayy - ys),
-                                           _hypot(Bxx - xs, Byy - ys)),
-                             _hypot(Cxx - xs, Cyy - ys))
+        radius = torch.floor(fmath.sqrt(S) / 2.0)
+        dmin = torch.minimum(torch.minimum(fmath.hypot(Axx - xs, Ayy - ys),
+                                           fmath.hypot(Bxx - xs, Byy - ys)),
+                             fmath.hypot(Cxx - xs, Cyy - ys))
         radius = torch.where(2.5 * dmin < radius, torch.floor(dmin), radius)
         if edge_dist is not None:
             radius = torch.minimum(radius, torch.min(edge_dist, dim=0).values)

@@ -2,8 +2,10 @@
 ``dvpmvs/priors/edges.py``; oracle ``EdgeSegment``, APD.cpp:348-499).
 
 Host-side numpy/scipy, computed once per (view, round).  Only mode 0 with
-Canny runs on the main path; the Roberts/Hough label mode (mode 1) needs the
-connected-component labeling and waits for the priors slice of the port.
+Canny runs on the main path; the Roberts/Hough label mode (mode 1) waits for
+the priors slice of the port (ROADMAP.md, Queue 1 item 2).
+``connected_components`` is here on its scipy path, for the runner's
+visibility cleanup.
 """
 
 from __future__ import annotations
@@ -104,3 +106,19 @@ def edge_segment(scale: int, src_image: np.ndarray, mode: int = 0,
     dst[0, :] = np.where(dst[1, :] == 0, 0, dst[0, :])
     dst[-1, :] = np.where(dst[-2, :] == 0, 0, dst[-1, :])
     return dst
+
+
+def connected_components(nonedge: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """4-connected labeling of ZERO (non-edge) pixels + per-label counts.
+
+    Matches ``Connect`` + ``Label_Update`` (APD.cpp:233-346, 138-230):
+    label 0 = edge pixels; labels 1..N = components.  The scipy path of
+    ``dvpmvs.priors.edges.connected_components``; its native union-find
+    labeler waits for ROADMAP.md Queue 1 item 2.
+    """
+    zero = np.asarray(nonedge) == 0
+    structure = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], int)
+    lab, n = ndimage.label(zero, structure=structure)
+    counts = np.bincount(lab.ravel(), minlength=n + 1)
+    counts[0] = 0
+    return lab.astype(np.int32), counts.astype(np.int64)

@@ -100,3 +100,23 @@ class TorchDraws:
         return torch.randint(int(minval), int(maxval), tuple(shape),
                              generator=gen, device=self.device,
                              dtype=torch.int32)
+
+
+class Rooted:
+    """The draw source ``draws`` seen from the key at ``root``: each path a
+    pass asks for is taken below ``root``.  The scene runner gives each view
+    pass the key ``fold_in(fold_in(seed key, iteration), view id)`` so."""
+
+    def __init__(self, draws: DrawSource, root: KeyPath):
+        self.draws = draws
+        self.root = tuple(root)
+
+    def uniform(self, path: KeyPath, shape: Sequence[int],
+                minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+        return self.draws.uniform(self.root + tuple(path), shape, minval,
+                                  maxval)
+
+    def randint(self, path: KeyPath, shape: Sequence[int], minval: int,
+                maxval: int) -> torch.Tensor:
+        return self.draws.randint(self.root + tuple(path), shape, minval,
+                                  maxval)

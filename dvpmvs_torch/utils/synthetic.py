@@ -11,18 +11,20 @@ with analytic ground-truth depth for unit/golden tests and benchmarks:
   * a low-texture disc can be stamped in to exercise the weak-pixel machinery.
 
 Everything is numpy (host-side data prep); cameras are float32 CPU tensors.
-A copy of ``dvpmvs/utils/synthetic.py::make_scene`` (same arrays, bit for
-bit); writing a scene to disk waits for the I/O slice of the port.
+A copy of ``dvpmvs/utils/synthetic.py``: ``make_scene`` gives the same
+arrays bit for bit, and ``write_scene_dir`` the same files byte for byte.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import List
 
 import numpy as np
 
 from ..geometry.camera import Camera
+from ..io.camera_io import write_cam_txt, write_pair_txt
 
 
 @dataclasses.dataclass
@@ -191,3 +193,19 @@ def make_scene(
                           gt_normal=gt_normal,
                           planes_n=planes_n.astype(np.float32),
                           planes_d=planes_d.astype(np.float32))
+
+
+def write_scene_dir(scene: SyntheticScene, folder) -> Path:
+    """Materialize an MVSNet-layout scene directory (npy images)."""
+    folder = Path(folder)
+    (folder / "images").mkdir(parents=True, exist_ok=True)
+    (folder / "cams").mkdir(parents=True, exist_ok=True)
+    V = scene.images.shape[0]
+    pairs = []
+    for v in range(V):
+        np.save(folder / "images" / f"{v:08d}.npy", scene.images[v])
+        write_cam_txt(folder / "cams" / f"{v:08d}_cam.txt", scene.cameras[v])
+        srcs = [(u, 100.0) for u in range(V) if u != v]
+        pairs.append((v, srcs))
+    write_pair_txt(folder / "pair.txt", pairs)
+    return folder

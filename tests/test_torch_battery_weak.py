@@ -13,7 +13,13 @@ default-mode floors of tests/test_weak_battery.py (0.55 disc, 0.60 band)
 date from an earlier state of the JAX package: its own default mode,
 ``python -m tests.test_weak_battery disc default`` (and ``band``), now
 gives 0.372 and 0.380 on the CPU.  The port with the same JAX draws on
-the exact backend gives 0.365 on "disc".
+the exact backend gives 0.365 on "disc" and 0.387 on "band" (0.376 with
+JAX's elementwise math), and its FIRST_INIT equals JAX's region acc2
+(0.312); on the "fused" backend 0.362.  Over eight seeds of its own draw
+source the port's "band" reads 0.342-0.366 (mean 0.352): the gap to JAX's
+0.380 is the draws and the backend, not a fault
+(``python -m tests.torch_band_gap --jax --seeds 8``).  The margin is that
+measured gap (0.033 at seed 0), rounded up.
 """
 
 import numpy as np
@@ -35,7 +41,7 @@ from dvpmvs_torch.rng import TorchDraws
 # region acc2 of the JAX package's default mode today (see above), and the
 # margin below it that the port's own draws must stay within
 JAX_TODAY = {"disc": 0.372, "band": 0.380}
-MARGIN = 0.07
+MARGIN = 0.04
 RECOVERY = 0.05
 
 
@@ -47,7 +53,7 @@ def _region_acc(depth, gt, region):
 
 @pytest.mark.parametrize("name", ["disc", "band"])
 def test_fused_weak_passes_meet_battery_floors(name):
-    """Measured: disc 0.399 (0.248 after FIRST_INIT), band 0.342 (0.262)
+    """Measured: disc 0.399 (0.248 after FIRST_INIT), band 0.347 (0.262)
     over the region."""
     spec = SCENES[name]
     dims, kw = spec["dims"], spec["kw"]

@@ -560,3 +560,50 @@ def test_anchor_kernel_band_compaction(card, n_extra):
     args = anchor_fused.kernel_args(ctx, planes, af, ok_k, words)
     got = _k4_check(args, (~ok_k)[:, None].expand(-1, V))
     assert bool(got.has_anchors[:, ok_k].any())
+
+
+def test_scene_command_on_the_card(card, tmp_path):
+    """``scene <folder>`` on the card (its default device): a 4-view 48x160
+    scene, one geometric pass, to a non-empty APD.ply, launching K1-K3."""
+    from dvpmvs_torch.cli.run import main as cli
+    from dvpmvs_torch.io import read_ply
+    from dvpmvs_torch.utils.synthetic import write_scene_dir
+    folder = write_scene_dir(make_scene(num_views=4, height=H, width=W,
+                                        seed=2), tmp_path / "dense")
+    _build.reset_launches()
+    assert cli(["scene", str(folder), "--geometric-passes", "1",
+                "--iterations", "2"]) == 0
+    for name in ("ncc_fused", "sweep", "geom"):
+        assert _build.LAUNCHES.get(name, 0) > 0, name
+    pts, cols = read_ply(folder / "APD" / "APD.ply")
+    assert len(pts) > 0 and np.isfinite(pts).all()
+    assert cols.shape == pts.shape
+
+
+def test_pair_consistency_on_the_card_matches_the_cpu(card):
+    """The fusion's pair test on the card against its CPU run on the same
+    noisy ground truth: nearest pixels and validity equal at >= 99.9 % of
+    the pixels, err / angle within 1e-4 and rdd within 1e-6 where the
+    pixels agree (the CPU's arccos and hypot round differently)."""
+    from dvpmvs_torch.fusion import fuse
+    scene = card["scene"]
+    rng = np.random.default_rng(1)
+    depth = [torch.as_tensor((scene.gt_depth[v] * (
+        1 + 3e-4 * rng.standard_normal((H, W)))).astype(np.float32))
+        for v in (0, 1)]
+    normal = [torch.as_tensor((scene.gt_normal[v] @ scene.cameras[v].R
+                               .numpy()).astype(np.float32)) for v in (0, 1)]
+    mask = torch.zeros((H, W), dtype=torch.uint8)
+    mask[10:20, 5:60] = 1
+    args = (depth[0], normal[0], scene.cameras[0], depth[1], normal[1],
+            scene.cameras[1], mask)
+    want = fuse._pair_consistency(*args)
+    got = fuse._pair_consistency(*(
+        a.to(card["dev"]) for a in args))
+    got = [g.cpu() for g in got]
+    same = (got[3] == want[3]) & (got[4] == want[4])
+    assert float(same.float().mean()) >= 0.999
+    assert float((got[5] == want[5]).float().mean()) >= 0.999
+    for k, tol in ((0, 1e-4), (1, 1e-6), (2, 1e-4)):
+        assert float(torch.abs(got[k] - want[k])[same].max()) <= tol, k
+    assert float(got[5].float().mean()) > 0.5

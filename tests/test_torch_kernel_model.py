@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from dvpmvs_torch import fmath
 from dvpmvs_torch.engine.packing import pack_ctx, pack_parity
 from dvpmvs_torch.geometry import stack_cameras
 from dvpmvs_torch.kernels import _build, ncc_fused, sweep_fused
@@ -201,7 +202,7 @@ def k2_model(invd0, invbl, vweights, w_taps, wref_taps, wsums, src, M, b,
         m_src = s1 * inv
         var_src = s2 * inv - m_src * m_src
         covar = s3 * inv - m_ref * m_src
-        vp = torch.sqrt(torch.clamp(var_ref * var_src, min=0.0))
+        vp = fmath.sqrt(torch.clamp(var_ref * var_src, min=0.0))
         cost = torch.clamp(1.0 - covar / torch.clamp(vp, min=1e-30), 0.0,
                            COST_MAX)
         bad = ref_bad | (var_src < _K_MIN_VAR) | ~in_view
@@ -635,7 +636,7 @@ def k3_composed(gctx, depths, vweights=None, fold=False, parity=None):
               for c in range(3)]
         rz2 = rcp(g(h2[2]))
         dx, dy = xf - h2[0] * rz2, yf - h2[1] * rz2
-        dist = torch.sqrt(fma(dx, dx, dy * dy))
+        dist = fmath.sqrt(fma(dx, dx, dy * dy))
         cost = torch.clamp(dist, max=3.0)
         cost = torch.where((sd <= 0) | ~torch.isfinite(dist),
                            torch.full_like(cost, 3.0), cost)

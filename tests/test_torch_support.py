@@ -1,10 +1,13 @@
 """Helpers shared by the port's tests (tests/test_torch_*.py): the
-jax-backed draw source, small conversions between the two packages, and
-the round-0 slice that both packages run pixel by pixel.
+jax-backed draw source, JAX's elementwise math for the port, small
+conversions between the two packages, and the round-0 slice that both
+packages run pixel by pixel.
 
-The draw source lives here, not in dvpmvs_torch: the port never imports JAX.
+The draw source and the math live here, not in dvpmvs_torch: the port never
+imports JAX.
 """
 
+import contextlib
 from functools import partial
 
 import jax
@@ -17,7 +20,7 @@ from dvpmvs.geometry import stack_cameras
 from dvpmvs.priors.edges import edge_segment
 from dvpmvs.utils.synthetic import make_scene
 
-from dvpmvs_torch import convert
+from dvpmvs_torch import convert, fmath
 from dvpmvs_torch.engine import run_pass as t_run_pass
 from dvpmvs_torch.geometry import stack_cameras as t_stack_cameras
 
@@ -60,6 +63,34 @@ class JaxDraws:
         r = jax.random.randint(self.derive(path), tuple(shape), minval,
                                maxval)
         return torch.from_numpy(np.array(r).astype(np.int32))
+
+
+@contextlib.contextmanager
+def jax_math():
+    """Run the port with JAX's exp, sin, cos, arccos, rsqrt and sigmoid (in
+    place of ``dvpmvs_torch.fmath``'s, for CPU float32 tensors).  Neither
+    library rounds them correctly and each moves with the host; with JAX's
+    the two packages round every op alike, so whole passes compare within
+    the last bits that a compiled JAX program reassociates."""
+    fns = dict(exp=jax.numpy.exp, sin=jax.numpy.sin, cos=jax.numpy.cos,
+               acos=jax.numpy.arccos, rsqrt=jax.lax.rsqrt,
+               sigmoid=jax.nn.sigmoid)
+    saved = {name: getattr(fmath, name) for name in fns}
+
+    def on_jax(jfn, tfn):
+        def fn(x):
+            if x.device.type != "cpu" or x.dtype != torch.float32:
+                return tfn(x)
+            return torch.from_numpy(np.array(jfn(x.numpy())))
+        return fn
+
+    try:
+        for name, jfn in fns.items():
+            setattr(fmath, name, on_jax(jfn, saved[name]))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fmath, name, fn)
 
 
 def t_camera(jcam):

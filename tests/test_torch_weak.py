@@ -142,10 +142,16 @@ def anchors(request, setup):
 
 
 def test_find_anchors_matches_jax(anchors):
-    """Measured: valid and reliable equal everywhere; coords equal at
-    99.956 % of the entries without a label map and 99.982 % with it (a
-    few pixels' near-equal anchor distances order the other way).  The
-    bound is 99.9 %."""
+    """Measured: coords, valid and reliable equal at every entry, with and
+    without a label map, on an AMD EPYC host; the port's search on a second
+    host (an H100 machine's CPU, torch 2.11) from the same inputs and draws
+    equals the first host's JAX search at every entry too
+    (tests/torch_host_agreement.py).  The port's square roots are
+    correctly rounded, as XLA's (``dvpmvs_torch.fmath``); with PyTorch's
+    own CPU sqrt, an ulp off at a host-dependent share of inputs, coords
+    agreed at 99.956 % on one host and 98.9 % on another (near-equal anchor
+    distances ordered the other way).  Every other op of the search is
+    IEEE arithmetic, so the bound is equality."""
     want, got, _ = anchors
     assert tuple(got.coords.shape) == (t_weak.NUM_ANCHORS, H, W, 2)
     assert got.coords.dtype == torch.int32
@@ -153,7 +159,7 @@ def test_find_anchors_matches_jax(anchors):
         same = float((np_(getattr(got, name))
                       == np.asarray(getattr(want, name))).mean())
         print(f"find_anchors {name}: equal at {same:.5f}")
-        assert same >= 0.999, (name, same)
+        assert same == 1.0, (name, same)
     # the vote found planes: the comparison is not vacuous
     assert float(np.asarray(want.reliable).mean()) > 0.1
 
