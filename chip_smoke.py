@@ -50,10 +50,20 @@
    K1, K2 and K3 (per view: the runner passes radius maps, so no sweep
    takes the fold) were launched in the run and that a resumed run runs
    no pass and writes the same PLY;
-9. with ``--profile`` only: runs each pass once more under torch.profiler
+9. rounds phase: the rounds >= 1 of a scene with both priors, on an
+   11-view 608x800 folder with sfm/ points: the CLI's ``prior`` command
+   (Depth-Anything-V2 ViT-S, random weights from a seed) timed per view,
+   the label maps' host time, then ``scene --mono-prior --max-base-size
+   400 --full-res-round``: round 0 at 304x400 from the mono planes, round
+   1 at 608x800 (REFINE_INIT and 3 APD REFINE_ITER with computed label
+   maps), ETH3D fusion; prints each pass's wall against the time inside
+   run_pass, the label maps' time, each view's acc2 and the fused cloud;
+   checks that K1, K2, K3 (per view, parity) and K4 were launched in the
+   run;
+10. with ``--profile`` only: runs each pass once more under torch.profiler
    and prints the device's busy time and the device time by kernel, and
    the same for the anchor search and one RANSAC fit on their own;
-10. prints one JSON line with the kernels' numbers, the card line, and as
+11. prints one JSON line with the kernels' numbers, the card line, and as
    the last line {"ok": true, "device": {...}}.
 
 Every path step resets the launch counts just before it and reads them just
@@ -579,7 +589,8 @@ def problem(torch, scene, v):
     nv = len(scene.cameras)
     others = [i for i in range(nv) if i != v]
     reps = [others[j % len(others)] for j in range(V)]
-    edge = torch.as_tensor(edge_segment(0, scene.images[v]) > 0)
+    edge = torch.as_tensor(edge_segment(0, scene.images[v], mode=0,
+                                        use_canny=True) > 0)
     return reps, scene.cameras[v], edge
 
 
@@ -1114,6 +1125,168 @@ def scene_phase(torch):
     return launches, summary
 
 
+def rounds_phase(torch):
+    """Rounds >= 1 of a scene on the card, with both priors: an 11-view
+    608x800 folder (make_scene seed 2) written with its sfm/ points; the
+    CLI's ``prior`` command in this process (DA-V2 ViT-S, random weights
+    from seed 0, each view padded to 616x812: 2,552 patch tokens), timed
+    per view; the label maps' host time at scales 0 and 1; then ``scene
+    --mono-prior --max-base-size 400 --full-res-round --checkpoint
+    --metrics``: round 0 at 304x400 (FIRST_INIT from the mono planes, 3
+    REFINE_ITER), round 1 at 608x800 (REFINE_INIT, 3 APD REFINE_ITER with
+    computed label maps), ETH3D fusion.  Checks the dep/ maps, the launches
+    of K1, K2, K3 (per view, parity) and K4 in the run, the 8 pass spans,
+    acc2 of each view at 608x800 (view 0 at least ACC2_FLOOR) and the
+    fused cloud."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    from dvpmvs_torch.cli.run import main as cli
+    from dvpmvs_torch.io import read_dmb, read_ply
+    from dvpmvs_torch.kernels import _build
+    from dvpmvs_torch.priors import depth_anything as da
+    from dvpmvs_torch.priors.edges import edge_segment
+    from dvpmvs_torch.sched import runner as runner_mod
+    from dvpmvs_torch.utils.synthetic import make_scene, write_scene_dir
+
+    t_phase = time.perf_counter()
+    scene = make_scene(num_views=SCENE_VIEWS, height=H, width=W, seed=2)
+    labels = {}
+    for scale in (0, 1):
+        runs_s = []
+        for v in range(3):
+            t0 = time.perf_counter()
+            edge_segment(scale, scene.images[v], mode=1, use_canny=False)
+            runs_s.append(time.perf_counter() - t0)
+        labels[scale] = sorted(runs_s)[1]
+        print(f"  label map (host, {H}x{W}, scale {scale}): median of 3 "
+              f"{labels[scale]:.4f} s ({', '.join(f'{t:.4f}' for t in runs_s)}"
+              ")", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = write_scene_dir(scene, Path(tmp) / "dense", with_sfm=True)
+        da_s, n_params = [], []
+        infer = da.infer_relative_depth
+
+        def timed_infer(model, img):
+            n_params.append(sum(p.numel() for p in model.parameters()))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = infer(model, img)
+            torch.cuda.synchronize()
+            da_s.append(time.perf_counter() - t)
+            return out
+
+        da.infer_relative_depth = timed_infer
+        try:
+            cli(["prior", str(folder), "--seed", "0"])
+        finally:
+            da.infer_relative_depth = infer
+        deps = sorted((folder / "dep").glob("*.dmb"))
+        if len(deps) != SCENE_VIEWS:
+            raise AssertionError(f"prior wrote {len(deps)} dep/ maps")
+        for d in deps:
+            m = read_dmb(d)
+            if m.shape != (H, W) or not np.isfinite(m).all():
+                raise AssertionError(f"{d.name}: bad map {m.shape}")
+        da_view = float(np.median(da_s[1:]))
+        print(f"  DA-V2 ViT-S prior ({n_params[0]:,} parameters, {H}x{W} "
+              f"padded to {-(-H // 14) * 14}x{-(-W // 14) * 14}): first view "
+              f"{da_s[0]:.4f} s, median of the other {len(da_s) - 1} "
+              f"{da_view:.4f} s", flush=True)
+
+        out = folder / "APD"
+        # a base size of half the width: round 0 at half size, round 1 at
+        # full size
+        argv = ["scene", str(folder), "--mono-prior", "--max-base-size",
+                str(W // 2), "--full-res-round", "--checkpoint", "--metrics"]
+        inner, label_s, labelled = [], [], []
+
+        def timed_pass(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run_pass(*args, **kw)
+            torch.cuda.synchronize()
+            inner.append(time.perf_counter() - t)
+            return res
+
+        def timed_edges(scale, img, mode, use_canny=False):
+            t = time.perf_counter()
+            res = segment(scale, img, mode, use_canny)
+            if mode == 1:
+                label_s.append(time.perf_counter() - t)
+                labelled.append(float((res > 0).mean()))
+            return res
+
+        run_pass, segment = runner_mod.run_pass, runner_mod.edge_segment
+        runner_mod.run_pass, runner_mod.edge_segment = timed_pass, \
+            timed_edges
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            cli(argv)
+        finally:
+            runner_mod.run_pass, runner_mod.edge_segment = run_pass, segment
+        torch.cuda.synchronize()
+        scene_s = time.perf_counter() - t0
+        launches = {k: n for k, n in counts().items() if n}
+        require_launched(launches, ("ncc_fused", "sweep", "geom/per view",
+                                    "geom/parity", "anchor"),
+                         "the rounds scene run")
+        dump = json.loads((out / "metrics.json").read_text())
+        walls = {k: v["total_s"] for k, v in dump["timings"].items()}
+        spans = [f"round{r}/pass{i}" for r in (0, 1) for i in range(4)]
+        if sorted(walls) != sorted(spans + ["fusion"]):
+            raise AssertionError(f"rounds run spans {sorted(walls)}")
+        overflow = int(dump["counters"].get("weak_budget_overflow_px", 0))
+        if len(label_s) != SCENE_VIEWS:
+            raise AssertionError(f"{len(label_s)} label maps computed")
+        accs = []
+        for v in range(SCENE_VIEWS):
+            d = read_dmb(out / f"{v:08d}" / "depths_geom.dmb")
+            if d.shape != (H, W):
+                raise AssertionError(f"view {v}: depth {d.shape}")
+            accs.append(acc2(d, scene.gt_depth[v]))
+        pts, _ = read_ply(out / "APD.ply")
+        if len(pts) == 0 or not np.isfinite(pts).all():
+            raise AssertionError(f"APD.ply: {len(pts)} points")
+        dist = np.abs(pts.astype(np.float64) @ scene.planes_n.T
+                      + scene.planes_d[None]).min(1)
+        on_plane = float((dist < 0.06).mean())
+    in_pass = [sum(inner[i * SCENE_VIEWS:(i + 1) * SCENE_VIEWS])
+               for i in range(len(spans))]
+    print(f"  rounds run: {scene_s:.2f} s; "
+          + ", ".join(f"{k} {walls[k]:.3f} s" for k in spans)
+          + f", fusion {walls['fusion']:.3f} s; {len(pts)} points, "
+          f"{on_plane:.4f} within 0.06 of a ground-truth plane; "
+          f"launches {launches}", flush=True)
+    print("  inside run_pass by pass: "
+          + ", ".join(f"{t:.3f} s" for t in in_pass)
+          + "; the runner's host work "
+          + ", ".join(f"{walls[k] - t:.3f} s" for k, t in zip(spans, in_pass))
+          + f"; of it the label maps {sum(label_s):.3f} s (median "
+          f"{float(np.median(label_s)):.4f} s a view; labelled regions "
+          f"cover {min(labelled):.4f}-{max(labelled):.4f} of a view); "
+          f"weak_budget_overflow_px {overflow}", flush=True)
+    print("  acc2 by view (608x800, after round 1): "
+          + ", ".join(f"{a:.4f}" for a in accs), flush=True)
+    if accs[0] < ACC2_FLOOR:
+        raise AssertionError(f"rounds view 0 acc2 {accs[0]:.4f} < "
+                             f"{ACC2_FLOOR}")
+    summary = {"views": SCENE_VIEWS, "scene_s": scene_s, "pass_s": walls,
+               "run_pass_s": in_pass, "view_pass_s": inner,
+               "label_run_s": label_s, "label_host_s": labels,
+               "labelled_share": labelled,
+               "da_view_s": da_view, "da_s": da_s,
+               "da_params": n_params[0], "weak_budget_overflow_px": overflow,
+               "points": int(len(pts)), "on_plane_share": on_plane,
+               "acc2_views": accs, "launches": launches,
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"  rounds phase: {summary['phase_s']:.1f} s", flush=True)
+    return launches, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1164,6 +1337,10 @@ def main() -> int:
     print(f"scene phase (the scene command, {SCENE_VIEWS} views, {H}x{W}, "
           f"V={V}, round 0, ETH3D fusion):", flush=True)
     runs["scene"], summary["scene"] = scene_phase(torch)
+    print(f"rounds phase (the prior and scene --mono-prior commands, "
+          f"{SCENE_VIEWS} views, round 0 at {H // 2}x{W // 2}, round 1 at "
+          f"{H}x{W}, V={V}, label maps, ETH3D fusion):", flush=True)
+    runs["rounds"], summary["rounds"] = rounds_phase(torch)
     if "--profile" in sys.argv[1:]:
         print("profile phase (torch.profiler, one run of each pass):",
               flush=True)

@@ -13,9 +13,13 @@ reference).  The layout mirrors ``dvpmvs``:
              source field of the "warp" cost backend (K5, csrc/warp.cu),
              plus the kernels' build and load step (_build.py)
   bench/     the gather microbenchmark (K6, csrc/gather_bench.cu)
-  priors/    the Canny depth-edge prior (host numpy/scipy)
+  priors/    the depth-edge prior (Canny edge masks, Roberts/Hough label
+             maps, host numpy/scipy with the native labeler of
+             csrc/labeling.cpp), the mono-depth alignment, and the
+             Depth-Anything-V2 network that makes the mono maps
   engine/    the per-view PatchMatch pass
-  utils/     synthetic scenes
+  sched/     the scene runner; fusion/, io/, cli/: fusion, files, commands
+  utils/     synthetic scenes, metrics, PNG
   rng.py     the draw source every random draw goes through
   convert.py carries the JAX package's values (as numpy) into this package
 
@@ -35,6 +39,8 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+# The mono prior's bf16 products accumulate in float32, as XLA's do.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,15 +1,18 @@
-"""Command-line entry point of the port (counterpart of
-``dvpmvs/cli/run.py``'s ``scene`` command):
+"""Command-line entry points of the port (counterparts of
+``dvpmvs/cli/run.py``'s ``scene`` and ``prior`` commands):
 
   python -m dvpmvs_torch.cli.run scene <dense_folder> [options]
+  python -m dvpmvs_torch.cli.run prior <dense_folder> [options]
 
-runs the schedule on one scene folder (MVSNet layout) and fuses the views
-into ``<output>/APD.ply``, on the card unless ``--device cpu`` is given.
-The flags are the JAX command's; ``--backend`` takes the port's names
-(``fused``, the counterpart of JAX's ``pallas``, which it also accepts,
-``exact`` and ``warp``).  ``--mono-prior``, ``--mesh-views`` and
-``--mesh-tiles`` above 1, ``--show-medium-result`` and ``--debug-dumps``
-raise: they are not ported yet (ROADMAP.md, Queue 1).
+``scene`` runs the schedule on one scene folder (MVSNet layout) and fuses
+the views into ``<output>/APD.ply``; ``prior`` writes the
+Depth-Anything-V2 maps ``dep/%08d.dmb`` that ``scene --mono-prior`` reads
+with the folder's ``sfm/`` points.  Both run on the card unless ``--device
+cpu`` is given.  The flags are the JAX commands'; ``--backend`` takes the
+port's names (``fused``, the counterpart of JAX's ``pallas``, which it also
+accepts, ``exact`` and ``warp``).  ``--mesh-views`` and ``--mesh-tiles``
+above 1, ``--show-medium-result`` and ``--debug-dumps`` raise: they are not
+ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -25,9 +28,6 @@ def _cmd_scene(args) -> int:
     from ..io import load_scene
     from ..sched import SceneRunner
 
-    if args.mono_prior:
-        raise NotImplementedError("--mono-prior is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 4)")
     scene = load_scene(args.dense_folder, max_src_views=args.max_src_views,
                        load_colors=True)
     out_dir = Path(args.output or (Path(args.dense_folder) / "APD"))
@@ -48,7 +48,10 @@ def _cmd_scene(args) -> int:
         cost_backend="fused" if args.backend == "pallas" else args.backend,
         debug_dumps=args.debug_dumps,
     )
-    runner = SceneRunner(scene, cfg, base_static=base, device=args.device)
+    mono_planes = _mono_planes(scene, args.dense_folder) if args.mono_prior \
+        else {}
+    runner = SceneRunner(scene, cfg, base_static=base,
+                         mono_planes=mono_planes, device=args.device)
     out_dir.mkdir(parents=True, exist_ok=True)
     runner.run(checkpoint_dir=out_dir if (args.checkpoint or args.resume)
                else None,
@@ -60,6 +63,60 @@ def _cmd_scene(args) -> int:
     if args.metrics:
         runner.metrics.dump(out_dir / "metrics.json")
     print(f"fused {len(pts)} points -> {out_dir / 'APD.ply'}")
+    return 0
+
+
+def _mono_planes(scene, dense_folder) -> dict:
+    """FIRST_INIT planes of every view with both ``dep/%08d.dmb`` and
+    ``sfm/%08d.txt`` in the folder, at the image size."""
+    from ..io.dmb import read_dmb
+    from ..priors.mono import mono_prior_planes, read_sfm_txt
+
+    dense = Path(dense_folder)
+    planes = {}
+    for p in scene.problems:
+        vid = p.ref_image_id
+        dep_path = dense / "dep" / f"{vid:08d}.dmb"
+        sfm_path = dense / "sfm" / f"{vid:08d}.txt"
+        if dep_path.exists() and sfm_path.exists():
+            xy, xyz, _ = read_sfm_txt(sfm_path)
+            planes[vid] = mono_prior_planes(
+                read_dmb(dep_path), xy, xyz, scene.cameras[vid],
+                target_hw=scene.images[vid].shape)
+    return planes
+
+
+def _cmd_prior(args) -> int:
+    """Write ``dep/%08d.dmb`` monocular-depth maps for a scene with
+    Depth-Anything-V2, one view at a time on the device: the maps the
+    reference expects precomputed on disk (APD.cpp:1219-1223)."""
+    import numpy as np
+    import torch
+
+    from ..io import load_scene
+    from ..io.dmb import write_depth_dmb
+    from ..priors.depth_anything import (DAConfig, infer_relative_depth,
+                                         init_params)
+
+    scene = load_scene(args.dense_folder, max_src_views=1)
+    if args.checkpoint:
+        from ..priors.convert import load_checkpoint
+
+        model = load_checkpoint(args.checkpoint, device=args.device)
+    else:
+        print("[dvpmvs_torch] WARNING: no --checkpoint given; using randomly "
+              "initialized DA-V2 weights (shape/pipeline testing only)")
+        cfg = DAConfig.tiny_test() if args.tiny else DAConfig.vits()
+        model = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                            device=args.device)
+    model.eval()
+    out_dir = Path(args.dense_folder) / "dep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for vid in scene.image_ids:
+        dep = infer_relative_depth(model, np.asarray(scene.images[vid],
+                                                     np.float32))
+        write_depth_dmb(out_dir / f"{vid:08d}.dmb", dep)
+        print(f"[dvpmvs_torch] dep/{vid:08d}.dmb written")
     return 0
 
 
@@ -94,7 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="add the full-resolution round the reference "
                          "schedule stops before (main.cpp:450)")
     ps.add_argument("--mono-prior", action="store_true",
-                    help="not ported yet")
+                    help="start FIRST_INIT from the dep/ maps aligned to the "
+                         "sfm/ points")
     ps.add_argument("--checkpoint", action="store_true",
                     help="persist per-pass state (reference .dmb/.bin files)")
     ps.add_argument("--resume", action="store_true",
@@ -110,6 +168,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="not ported yet")
     ps.add_argument("--seed", type=int, default=0)
     ps.set_defaults(fn=_cmd_scene)
+
+    pp = sub.add_parser("prior", help="run DA-V2 -> dep/%%08d.dmb maps")
+    pp.add_argument("dense_folder")
+    pp.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    pp.add_argument("--checkpoint", default=None,
+                    help="released DA-V2 .pth (or .npz) to load and run")
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--tiny", action="store_true",
+                    help="tiny random model (pipeline tests)")
+    pp.set_defaults(fn=_cmd_prior)
     return p
 
 

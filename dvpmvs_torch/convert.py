@@ -96,3 +96,70 @@ def pass_output(src: Any, device=None) -> PassOutput:
         weak_overflow=None if over is None else t("weak_overflow",
                                                   torch.int32),
     )
+
+
+def depth_anything_state_dict(params: Mapping) -> dict:
+    """A Flax Depth-Anything-V2 ``params`` tree (numpy arrays, as JAX's
+    ``init_params`` or ``convert_state_dict`` give it) -> the port's state
+    dict (release keys, float32 CPU tensors) for ``load_state_dict``.
+
+    Inverts JAX's converter (``dvpmvs/priors/convert.py``): Conv kernels
+    [kh, kw, I, O] -> [O, I, kh, kw]; ConvTranspose kernels undo the
+    spatial flip, then [kh, kw, I, O] -> [I, O, kh, kw]; Dense kernels
+    [I, O] -> [O, I]; LayerNorm ``scale`` -> ``weight``.  refinenet4's
+    resConfUnit1, which Flax never builds (it takes no skip), is zero."""
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32))
+    conv = lambda k: f32(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+    deconv = lambda k: f32(np.transpose(np.asarray(k)[::-1, ::-1],
+                                        (2, 3, 0, 1)))
+    lin = lambda k: f32(np.transpose(np.asarray(k)))
+    sd = {}
+
+    def layer(prefix, p, kernel=conv):
+        sd[f"{prefix}.weight"] = kernel(p["kernel"])
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = f32(p["bias"])
+
+    def norm(prefix, p):
+        sd[f"{prefix}.weight"] = f32(p["scale"])
+        sd[f"{prefix}.bias"] = f32(p["bias"])
+
+    bb, head = params["backbone"], params["head"]
+    sd["pretrained.cls_token"] = f32(bb["cls_token"])
+    sd["pretrained.pos_embed"] = f32(bb["pos_embed"])
+    layer("pretrained.patch_embed.proj", bb["patch_embed"])
+    norm("pretrained.norm", bb["norm"])
+    blocks = sorted(int(k[5:]) for k in bb if k.startswith("block"))
+    for i in blocks:
+        b, p = bb[f"block{i}"], f"pretrained.blocks.{i}"
+        norm(f"{p}.norm1", b["norm1"])
+        layer(f"{p}.attn.qkv", b["attn"]["qkv"], lin)
+        layer(f"{p}.attn.proj", b["attn"]["proj"], lin)
+        sd[f"{p}.ls1.gamma"] = f32(b["ls1"])
+        norm(f"{p}.norm2", b["norm2"])
+        layer(f"{p}.mlp.fc1", b["mlp_fc1"], lin)
+        layer(f"{p}.mlp.fc2", b["mlp_fc2"], lin)
+        sd[f"{p}.ls2.gamma"] = f32(b["ls2"])
+
+    for i in range(4):
+        layer(f"depth_head.projects.{i}", head[f"project{i}"])
+        layer(f"depth_head.scratch.layer{i + 1}_rn", head[f"layer{i + 1}_rn"])
+    layer("depth_head.resize_layers.0", head["resize0"], deconv)
+    layer("depth_head.resize_layers.1", head["resize1"], deconv)
+    layer("depth_head.resize_layers.3", head["resize3"])
+    for r in range(1, 5):
+        blk, p = head[f"refinenet{r}"], f"depth_head.scratch.refinenet{r}"
+        layer(f"{p}.out_conv", blk["out_conv"])
+        for u in (1, 2):
+            for c in ("conv1", "conv2"):
+                if f"resConfUnit{u}" in blk:
+                    layer(f"{p}.resConfUnit{u}.{c}", blk[f"resConfUnit{u}"][c])
+                else:
+                    f = np.asarray(blk["out_conv"]["kernel"]).shape[-1]
+                    sd[f"{p}.resConfUnit{u}.{c}.weight"] = torch.zeros(
+                        f, f, 3, 3)
+                    sd[f"{p}.resConfUnit{u}.{c}.bias"] = torch.zeros(f)
+    layer("depth_head.scratch.output_conv1", head["output_conv1"])
+    layer("depth_head.scratch.output_conv2.0", head["output_conv2a"])
+    layer("depth_head.scratch.output_conv2.2", head["output_conv2b"])
+    return sd

@@ -20,9 +20,8 @@ from the runner's draw source below the key path ``fold_in(iteration) /
 fold_in(view id)``, JAX's ``fold_in(fold_in(PRNGKey(seed), iteration),
 rid)``: production uses ``TorchDraws(seed)``, a test may give the
 jax-backed source.  Not ported here (each raises ``NotImplementedError``
-naming its ROADMAP.md item): the batched and tiled multi-device passes, a
-label map the runner would have to compute, the mono prior, debug dumps and
-medium results.
+naming its ROADMAP.md item): the batched and tiled multi-device passes,
+debug dumps and medium results.
 """
 
 from __future__ import annotations
@@ -102,8 +101,7 @@ class SceneRunner:
             raise _not_ported("show_medium_result", "5")
         if self.base_static.debug_dumps:
             raise _not_ported("debug_dumps", "5")
-        if mono_planes:
-            raise _not_ported("the mono prior (mono_planes)", "4")
+        self.mono_planes = mono_planes or {}
         self.device = resolve_device(device)
         self.draws = (draws if draws is not None
                       else TorchDraws(self.config.seed, device=self.device))
@@ -151,26 +149,27 @@ class SceneRunner:
             edge = self.edge_cache[ek]
         if need_label and self.base_static.use_label:
             if ek not in self.label_cache:
-                self.label_cache[ek] = self._load_label(image_id)
+                self.label_cache[ek] = self._load_or_compute_label(
+                    image_id, scale)
             label = self.label_cache[ek]
         return edge, label
 
-    def _load_label(self, image_id: int) -> np.ndarray:
-        """Segmentation-label map for one view from an external
+    def _load_or_compute_label(self, image_id: int, scale: int) -> np.ndarray:
+        """Segmentation-label map for one view: an external
         ``MVS4/%08d.dmb`` file (a TSAR-MVS-style float map rescaled to the
-        image extent, APD.cpp:1634-1645).  Computing the map (the
-        Roberts/CC/Hough label mode) is not ported."""
+        image extent, APD.cpp:1634-1645) is preferred when present;
+        otherwise it is computed by the Roberts/CC/Hough pipeline (the
+        reference's EdgeSegment mode 1) at ``scale``."""
         mvs4 = (Path(self.scene.dense_folder) / "MVS4"
                 / f"{image_id:08d}.dmb") if self.scene.dense_folder else None
-        if mvs4 is None or not mvs4.is_file():
-            raise _not_ported(
-                f"view {image_id}: computing a label map (no MVS4/ file; "
-                f"pass --no-label)", "2")
-        lab = np.asarray(read_dmb(mvs4))
-        ih, iw = self.scene.images[image_id].shape
-        if lab.shape != (ih, iw):
-            lab = rescale_nearest(lab.astype(np.float32), (ih, iw))
-        return lab.astype(np.int32)
+        if mvs4 is not None and mvs4.is_file():
+            lab = np.asarray(read_dmb(mvs4))
+            ih, iw = self.scene.images[image_id].shape
+            if lab.shape != (ih, iw):
+                lab = rescale_nearest(lab.astype(np.float32), (ih, iw))
+            return lab.astype(np.int32)
+        return edge_segment(scale, self.scene.images[image_id], mode=1,
+                            use_canny=False)
 
     # ------------------------------------------------------------------
     _BUDGET_BUCKETS = (0.125, 0.25, 0.375, 0.5)
@@ -230,6 +229,12 @@ class SceneRunner:
             kwargs["init_weak"] = rescale_nearest(st.weak, (H, W))
             if static.use_radius:
                 kwargs["radius_map"] = rescale_nearest(st.radius, (H, W))
+        elif rid in self.mono_planes:
+            mp = self.mono_planes[rid]
+            if mp.shape[:2] != (H, W):
+                mp = np.stack([rescale_nearest(mp[..., i], (H, W))
+                               for i in range(4)], -1)
+            kwargs["init_plane_world"] = mp
 
         if static.geom_consistency:
             sds = []

@@ -195,8 +195,13 @@ def make_scene(
                           planes_d=planes_d.astype(np.float32))
 
 
-def write_scene_dir(scene: SyntheticScene, folder) -> Path:
-    """Materialize an MVSNet-layout scene directory (npy images)."""
+def write_scene_dir(scene: SyntheticScene, folder,
+                    with_sfm: bool = False, sfm_points: int = 200) -> Path:
+    """Materialize an MVSNet-layout scene directory (npy images).
+
+    ``with_sfm`` also writes ``sfm/%08d.txt`` sparse points (x2d y2d x3d y3d
+    z3d r g b, the mono-prior alignment input, APD.cpp:1239-1248) sampled
+    from the ground-truth depth."""
     folder = Path(folder)
     (folder / "images").mkdir(parents=True, exist_ok=True)
     (folder / "cams").mkdir(parents=True, exist_ok=True)
@@ -208,4 +213,24 @@ def write_scene_dir(scene: SyntheticScene, folder) -> Path:
         srcs = [(u, 100.0) for u in range(V) if u != v]
         pairs.append((v, srcs))
     write_pair_txt(folder / "pair.txt", pairs)
+    if with_sfm:
+        (folder / "sfm").mkdir(exist_ok=True)
+        rng = np.random.default_rng(0)
+        H, W = scene.images.shape[1:3]
+        for v in range(V):
+            cam = scene.cameras[v]
+            xs = rng.integers(2, W - 2, sfm_points)
+            ys = rng.integers(2, H - 2, sfm_points)
+            z = scene.gt_depth[v, ys, xs]
+            rx = (xs - float(cam.cx)) / float(cam.fx)
+            ry = (ys - float(cam.cy)) / float(cam.fy)
+            pc = np.stack([rx * z, ry * z, z], -1)          # camera frame
+            R = cam.R.cpu().numpy()
+            t = cam.t.cpu().numpy()
+            pw = (pc - t[None]) @ R                          # world frame
+            col = np.repeat(
+                scene.images[v, ys, xs, None], 3, axis=-1)
+            rows = np.concatenate(
+                [np.stack([xs, ys], -1).astype(np.float64), pw, col], -1)
+            np.savetxt(folder / "sfm" / f"{v:08d}.txt", rows, fmt="%.6f")
     return folder

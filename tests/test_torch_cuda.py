@@ -607,3 +607,55 @@ def test_pair_consistency_on_the_card_matches_the_cpu(card):
     for k, tol in ((0, 1e-4), (1, 1e-6), (2, 1e-4)):
         assert float(torch.abs(got[k] - want[k])[same].max()) <= tol, k
     assert float(got[5].float().mean()) > 0.5
+
+
+def test_depth_anything_on_the_card_matches_the_cpu(card):
+    """The DA-V2 prior of the three-block test config, one model on the
+    card and on the CPU from the same state dict: the 0..255 maps within
+    bf16 noise (median |d| <= 1, max |d| <= 8, correlation >= 0.9995, the
+    CPU tests' bound against Flax; cuBLAS and oneDNN sum bf16 products in
+    other orders)."""
+    from dvpmvs_torch.priors import convert as t_convert
+    from dvpmvs_torch.priors import depth_anything as t_da
+    cfg = t_da.DAConfig(embed_dim=64, depth=3, num_heads=2,
+                        out_indices=(0, 1, 2, 2), dpt_features=16,
+                        dpt_out_channels=(8, 16, 24, 32))
+    sd = {k: torch.as_tensor(np.full_like(v, 0.5) if k.endswith(".gamma")
+                             else v)
+          for k, v in t_convert.random_state_dict(cfg, seed=3).items()}
+    img = np.random.default_rng(5).uniform(0, 255, (40, 52)).astype(
+        np.float32)
+    maps = []
+    for dev in ("cpu", card["dev"]):
+        model = t_da.DepthAnythingV2(cfg)
+        model.load_state_dict(sd)
+        maps.append(t_da.infer_relative_depth(model.to(dev).eval(), img))
+    want, got = maps
+    d = np.abs(got.astype(np.float64) - want)
+    assert np.isfinite(got).all() and got.shape == (40, 52)
+    assert np.median(d) <= 1.0 and d.max() <= 8.0
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] >= 0.9995
+
+
+def test_prior_and_two_round_scene_on_the_card(card, tmp_path):
+    """``prior --tiny`` then ``scene --mono-prior`` over two rounds on the
+    card (their default device): a 4-view 48x160 band scene with sfm/
+    points, round 1 with computed label maps; launches K1-K4, and K3's
+    parity mode in round 1's APD pass."""
+    from dvpmvs_torch.cli.run import main as cli
+    from dvpmvs_torch.io import read_ply
+    from dvpmvs_torch.utils.synthetic import write_scene_dir
+    folder = write_scene_dir(make_scene(num_views=4, height=H, width=W,
+                                        seed=6, weak_band=True),
+                             tmp_path / "dense", with_sfm=True,
+                             sfm_points=80)
+    assert cli(["prior", str(folder), "--tiny"]) == 0
+    _build.reset_launches()
+    assert cli(["scene", str(folder), "--mono-prior", "--max-base-size",
+                str(W // 2), "--full-res-round", "--geometric-passes", "1",
+                "--iterations", "2"]) == 0
+    for name in ("ncc_fused", "sweep", "geom", "anchor"):
+        assert _build.LAUNCHES.get(name, 0) > 0, name
+    assert _build.MODE_LAUNCHES.get("geom/parity", 0) > 0
+    pts, _ = read_ply(folder / "APD" / "APD.ply")
+    assert len(pts) > 0 and np.isfinite(pts).all()

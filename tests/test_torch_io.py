@@ -138,17 +138,20 @@ def test_export_depth_point_cloud_matches_jax(tmp_path):
     assert len(t_io.read_ply(tmp_path / "t.ply")[0]) > 0
 
 
-@pytest.mark.parametrize("kw", [
-    dict(num_views=3, height=24, width=32, seed=4),
-    dict(num_views=5, height=17, width=23, seed=9)], ids=["3views", "5views"])
-def test_write_scene_dir_matches_jax(tmp_path, kw):
+@pytest.mark.parametrize("kw,sfm", [
+    (dict(num_views=3, height=24, width=32, seed=4), {}),
+    (dict(num_views=5, height=17, width=23, seed=9), {}),
+    (dict(num_views=3, height=24, width=32, seed=4),
+     dict(with_sfm=True, sfm_points=50))], ids=["3views", "5views", "sfm"])
+def test_write_scene_dir_matches_jax(tmp_path, kw, sfm):
     """The port's make_scene + write_scene_dir write JAX's files, byte for
-    byte (images, cameras and pair.txt)."""
-    j_write_scene_dir(j_make_scene(**kw), tmp_path / "j")
-    t_write_scene_dir(t_make_scene(**kw), tmp_path / "t")
+    byte (images, cameras and pair.txt; with ``with_sfm`` the sfm/ points
+    too)."""
+    j_write_scene_dir(j_make_scene(**kw), tmp_path / "j", **sfm)
+    t_write_scene_dir(t_make_scene(**kw), tmp_path / "t", **sfm)
     want, got = _tree(tmp_path / "j"), _tree(tmp_path / "t")
     assert sorted(got) == sorted(want)
-    assert len(got) == 2 * kw["num_views"] + 1
+    assert len(got) == (3 if sfm else 2) * kw["num_views"] + 1
     for name in want:
         assert got[name] == want[name], name
 

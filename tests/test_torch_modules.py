@@ -184,8 +184,10 @@ def test_canny_edge_segment_is_bitwise_equal(hw):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
         assert (got > 0).any()
-    with pytest.raises(NotImplementedError):
-        t_edge_segment(0, sc.images[0], mode=1)
+        # the label map of the Canny edges (mode 1) too
+        np.testing.assert_array_equal(
+            t_edge_segment(0, img, mode=1, use_canny=True),
+            j_edge_segment(0, img, mode=1, use_canny=True))
 
 
 # ------------------------------------------------------------ propagation --

@@ -20,8 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_support import (JaxDraws, compile_jax, jax_math, np_,
-                                t_camera)
+from test_torch_support import FastJit, JaxDraws, jax_math, np_, t_camera
 
 from dvpmvs import config as j_config
 from dvpmvs.config import PixelState
@@ -166,25 +165,6 @@ def test_run_fusion_matches_jax(variant, tmp_path):
 
 # ------------------------------------------------------- the scene runs --
 
-class _FastJit:
-    """``jax`` for dvpmvs.sched.runner, with each ``jax.jit`` of a pass
-    compiled on first call with JAX_FAST_COMPILE (the same program, XLA's
-    cheapest optimisation level)."""
-
-    def __getattr__(self, name):
-        return getattr(jax, name)
-
-    @staticmethod
-    def jit(fn):
-        compiled = []
-
-        def call(*args, **kw):
-            if not compiled:
-                compiled.append(compile_jax(fn, *args, **kw))
-            return compiled[0](*args, **kw)
-        return call
-
-
 def _config(mod):
     return mod.SceneConfig(geometric_passes=1, seed=SEED)
 
@@ -204,7 +184,7 @@ def runs(tmp_path_factory):
     folder = write_scene_dir(t_make_scene(num_views=NV, height=H, width=W,
                                           seed=9), tmp / "dense")
     mp = pytest.MonkeyPatch()
-    mp.setattr(j_runner, "jax", _FastJit())
+    mp.setattr(j_runner, "jax", FastJit())
     try:
         jr = j_runner.SceneRunner(j_load_scene(folder, max_src_views=2),
                                   _config(j_config), _static(j_config),
@@ -345,28 +325,21 @@ def test_cli_scene_runs_on_the_cpu(runs, tmp_path):
 
 
 @pytest.mark.parametrize("what", ["mesh_views", "mesh_tiles",
-                                  "show_medium_result", "debug_dumps",
-                                  "mono_planes", "mono_prior", "label"])
+                                  "show_medium_result", "debug_dumps"])
 def test_modes_not_ported_raise(runs, what):
     _, folder, *_ = runs
-    if what == "mono_prior":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_cli(["scene", str(folder), "--device", "cpu", "--mono-prior"])
-        return
     scene = t_load_scene(folder, max_src_views=2)
-    cfg, st, kw = _config(t_config), _static(t_config), {}
+    cfg, st = _config(t_config), _static(t_config)
     if what in ("mesh_views", "mesh_tiles", "show_medium_result"):
         cfg = dataclasses.replace(cfg, **{what: 2 if what.startswith("mesh")
                                           else True})
-    elif what == "debug_dumps":
+    else:
         st = st.replace(debug_dumps=True)
-    elif what == "mono_planes":
-        kw["mono_planes"] = {0: np.zeros((H, W, 4), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        r = t_runner.SceneRunner(scene, cfg, st, verbose=False,
-                                 device="cpu", **kw)
-        if what == "label":
-            r._edges_for(0, 1, need_label=True)
+    item = {"mesh_views": "6", "mesh_tiles": "6", "show_medium_result": "5",
+            "debug_dumps": "5"}[what]
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md, Queue 1 item {item}"):
+        t_runner.SceneRunner(scene, cfg, st, verbose=False, device="cpu")
 
 
 def test_label_map_from_mvs4_file_matches_jax(runs, tmp_path):
@@ -382,7 +355,7 @@ def test_label_map_from_mvs4_file_matches_jax(runs, tmp_path):
         r = t_runner.SceneRunner(t_load_scene(folder, max_src_views=2),
                                  _config(t_config), _static(t_config),
                                  verbose=False, device="cpu")
-        got = r._load_label(1)
+        got = r._load_or_compute_label(1, 0)
         want = jr._load_or_compute_label(1, 0)
     finally:
         (folder / "MVS4" / "00000001.dmb").unlink()

@@ -113,6 +113,36 @@ def compile_jax(fn, *args, **kwargs):
     return jax.jit(fn).lower(*args, **kwargs).compile(JAX_FAST_COMPILE)
 
 
+def assert_same_partition(got, want):
+    """Label maps equal as partitions: -1 and 0 at the same pixels, and one
+    positive id of ``got`` for each of ``want`` and back."""
+    assert got.shape == want.shape and got.dtype == np.int32
+    np.testing.assert_array_equal(got == -1, want == -1)
+    np.testing.assert_array_equal(got == 0, want == 0)
+    pos = want > 0
+    pairs = set(zip(got[pos].tolist(), want[pos].tolist()))
+    assert len(pairs) == len(np.unique(got[pos])) == len(np.unique(want[pos]))
+
+
+class FastJit:
+    """``jax`` for dvpmvs.sched.runner, with each ``jax.jit`` of a pass
+    compiled on first call with JAX_FAST_COMPILE (the same program, XLA's
+    cheapest optimisation level)."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def jit(fn):
+        compiled = []
+
+        def call(*args, **kw):
+            if not compiled:
+                compiled.append(compile_jax(fn, *args, **kw))
+            return compiled[0](*args, **kw)
+        return call
+
+
 # ------------------------------------------------ the round-0 slice, 48x64 --
 
 SLICE_H, SLICE_W, SLICE_V = 48, 64, 4
