@@ -60,10 +60,23 @@
    run_pass, the label maps' time, each view's acc2 and the fused cloud;
    checks that K1, K2, K3 (per view, parity) and K4 were launched in the
    run;
-10. with ``--profile`` only: runs each pass once more under torch.profiler
+10. exact phase: the APD REFINE_ITER of step 5's band scene, view 0, with
+   the reference-exact deformable oracle (``exact_deformable``) from the
+   same band FIRST_INIT; prints its wall, device events and busy time (one
+   more run under torch.profiler), acc2 and the textureless region's acc2
+   beside the production passes of steps 5 and 7 on the band scene (also
+   profiled once); checks that K1 and K3 (per view: the exact weak
+   half-iterations run on the full grid) ran and K4 did not;
+11. debug phase: ``debug_dumps`` through SceneRunner on the bench scene
+   (FIRST_INIT of its 5 views, then view 0's APD REFINE_ITER): the three
+   dump files' headers and sizes, and each cost curve's minimum within 2
+   steps of the solved depth at >= 90 % of the textured pixels; then
+   ``show_medium_result`` over round 0 of a two-view folder where PIL
+   imports (it prints whether it ran);
+12. with ``--profile`` only: runs each pass once more under torch.profiler
    and prints the device's busy time and the device time by kernel, and
    the same for the anchor search and one RANSAC fit on their own;
-11. prints one JSON line with the kernels' numbers, the card line, and as
+13. prints one JSON line with the kernels' numbers, the card line, and as
    the last line {"ok": true, "device": {...}}.
 
 Every path step resets the launch counts just before it and reads them just
@@ -717,13 +730,14 @@ def region_acc2(depth, gt, region) -> float:
 
 
 def apd_chain(torch, dev, scene, first, tag, refine_init: bool,
-              anchor_taps: int = 1):
+              anchor_taps: int = 1, exact: bool = False):
     """The weak-pixel passes on view 0 from the FIRST_INIT outputs
     ``first``: REFINE_INIT of round 1 (if ``refine_init``), then REFINE_ITER
     in the JAX bench's configuration (bench.py:131-159: use_APD, geometric
     consistency against the other views' FIRST_INIT depths, no labels,
-    3 iterations, edges) with ``anchor_taps``.  Returns {label: (out,
-    seconds, launches, callable, input weak count, acc2)}."""
+    3 iterations, edges) with ``anchor_taps``, or with the exact
+    deformable oracle (``exact``).  Returns {label: (out, seconds, launches,
+    callable, input weak count, acc2)}."""
     from dvpmvs_torch.config import (PixelState, PMDynamic, PMStatic,
                                      RunState, round_pass_params)
     from dvpmvs_torch.engine import run_pass
@@ -745,11 +759,12 @@ def apd_chain(torch, dev, scene, first, tag, refine_init: bool,
     st = PMStatic(state=RunState.REFINE_ITER, num_src=V,
                   max_iterations=ITERS, cost_backend="fused", use_APD=True,
                   geom_consistency=True, use_label=False,
-                  anchor_taps=anchor_taps)
+                  anchor_taps=anchor_taps, exact_deformable=exact)
     dyn = PMDynamic.create(depth_min=float(cam.depth_min),
                            depth_max=float(cam.depth_max))
     it_label = "REFINE_ITER (APD, geom" + (
-        f", anchor_taps={anchor_taps})" if anchor_taps > 1 else ")")
+        f", anchor_taps={anchor_taps}" if anchor_taps > 1 else "") + (
+        ", exact_deformable" if exact else "") + ")"
     runs.append((it_label, st, dyn, dict(
         src_depths=torch.stack([first[r][0].depth for r in reps]))))
     result = {}
@@ -760,9 +775,11 @@ def apd_chain(torch, dev, scene, first, tag, refine_init: bool,
         out, dt, launches = timed(torch, fn)
         n_weak = int((out0.weak == PixelState.WEAK).sum())
         a = acc2(out.depth.cpu().numpy(), scene.gt_depth[0])
+        over = (None if out.weak_overflow is None
+                else int(out.weak_overflow))
         print(f"  {tag}{label} view 0: {dt:.3f} s, weak pixels {n_weak}, "
-              f"weak_overflow {int(out.weak_overflow)}, acc2 {a:.4f}, "
-              f"launches {launches}", flush=True)
+              f"weak_overflow {over}, acc2 {a:.4f}, launches {launches}",
+              flush=True)
         if not torch.isfinite(out.depth).all() or \
                 tuple(out.depth.shape) != (H, W):
             raise AssertionError(f"{label}: bad depth map")
@@ -815,7 +832,8 @@ def apd_phase(torch, dev, scene, first):
         "weak_pixels": band_res[it_label][4],
         "acc2": band_res[it_label][5]}
     passes = {label: r[3] for label, r in res.items()}
-    return totals, summary, passes, band, band_first, before
+    return (totals, summary, passes, band, band_first, before,
+            band_res[it_label][3])
 
 
 def warp_phase(torch, dev, scene, first):
@@ -912,7 +930,187 @@ def taps_phase(torch, dev, scene, first, band, band_first, band_before,
                "band": {"s": br[1], "acc2": br[5], "weak_pixels": br[4],
                         "region_acc2": after,
                         "region_acc2_single_tap": band_taps1}}
-    return totals, summary, {label: r[3]}
+    return totals, summary, {label: r[3]}, br[3]
+
+
+def device_profile(torch, fn):
+    """One more run of ``fn`` under torch.profiler: (the device events'
+    intervals in us, the device us by event name, the device's busy
+    seconds -- the union of the intervals --, the run's wall seconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return spans, by_name, busy * 1e-6, wall
+
+
+def exact_phase(torch, dev, band, band_first, band_before, prod):
+    """The exact deformable oracle at full width: one APD REFINE_ITER of
+    the band scene's view 0 with ``exact_deformable=True`` from the band
+    FIRST_INIT of the APD phase, beside the production passes from the same
+    state (``prod``: {label: (callable, wall, acc2, region acc2)}, the
+    single-tap pass of the APD phase and the ``anchor_taps=3`` pass of the
+    taps phase).  Prints each pass's wall, device events and busy time (one
+    more run under torch.profiler), acc2 and the textureless band's acc2;
+    checks that K1 and K3 (per view: the exact weak half-iterations take
+    the full grid, so no parity mode) were launched and K4 was not."""
+    from dvpmvs_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    res = apd_chain(torch, dev, band, band_first, "band ", refine_init=False,
+                    exact=True)
+    totals = counts()
+    (label, r), = res.items()
+    require_launched(totals, ("ncc_fused", "geom/per view"),
+                     "the exact oracle's pass")
+    if totals.get("anchor", 0):
+        raise AssertionError("K4 ran in the exact oracle's pass")
+    if r[4] <= 0:
+        raise AssertionError(f"{label}: no weak pixel in the pass")
+    region = region_mask(dict(seed=6, weak_band=True))
+    after = region_acc2(r[0].depth.cpu().numpy(), band.gt_depth[0], region)
+    rows = {label: (r[3], r[1], r[5], after)}
+    rows.update(prod)
+    summary = {}
+    for name, (fn, wall, a, ra) in rows.items():
+        spans, _, busy, pwall = device_profile(torch, fn)
+        events = len(spans)
+        if events <= 0:
+            raise AssertionError(f"{name}: the profiler saw no device event")
+        summary[name] = {"s": wall, "acc2": a, "region_acc2": ra,
+                         "device_events": events, "device_busy_s": busy,
+                         "profiled_s": pwall}
+        print(f"  band {name} view 0: wall {wall:.3f} s, device events "
+              f"{events}, device busy {busy:.3f} s (profiled run "
+              f"{pwall:.3f} s), acc2 {a:.4f}, textureless region acc2 "
+              f"{ra:.4f} (FIRST_INIT {band_before:.4f})", flush=True)
+    summary["launches"] = r[2]
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"  exact phase: {summary['phase_s']:.1f} s", flush=True)
+    return totals, summary
+
+
+def debug_phase(torch, dev, scene, scene_kw):
+    """The debug outputs through SceneRunner on the card: the bench scene
+    (5 views, made with ``scene_kw``) written to a folder; FIRST_INIT of
+    every view, then the APD REFINE_ITER of view 0 (round 1's
+    configuration), both with ``debug_dumps``; checks the three files' headers and sizes and that
+    each cost curve's minimum lies within 2 steps of the solved depth's
+    step (the center, 30) at >= 90 % of view 0's textured interior pixels
+    with a depth.  Then ``show_medium_result`` over round 0 of a two-view
+    folder, where PIL imports (the jpgs are PIL's)."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    from dvpmvs_torch.config import (PMStatic, SceneConfig,
+                                     round_pass_params)
+    from dvpmvs_torch.io import load_scene, read_bin_mat
+    from dvpmvs_torch.kernels import _build
+    from dvpmvs_torch.rng import Rooted, fold_in
+    from dvpmvs_torch.sched import SceneRunner
+    from dvpmvs_torch.utils.synthetic import make_scene, write_scene_dir
+
+    t_phase = time.perf_counter()
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = write_scene_dir(scene, Path(tmp) / "dense")
+        sc = load_scene(folder, max_src_views=V)
+        base = PMStatic(max_iterations=ITERS, cost_backend="fused",
+                        debug_dumps=True)
+        runner = SceneRunner(sc, SceneConfig(), base, verbose=False,
+                             device=dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        runner.run_schedule_pass(0, 0)
+        torch.cuda.synchronize()
+        summary["first_init_s"] = time.perf_counter() - t0
+        res = sc.problems[0].result_folder
+        raw = (res / "weak_ncc_cost.bin").read_bytes()
+        head = np.frombuffer(raw[:12], np.int32).tolist()
+        if head != [W, H, 61] or len(raw) != 12 + 4 * H * W * 61:
+            raise AssertionError(f"weak_ncc_cost.bin: header {head}, "
+                                 f"{len(raw)} bytes")
+        curve = np.frombuffer(raw[12:], np.float32).reshape(H, W, 61)
+        depth = runner.state[0].depth
+        textured = ~region_mask(scene_kw)
+        textured[:MARGIN] = textured[-MARGIN:] = False
+        textured[:, :MARGIN] = textured[:, -MARGIN:] = False
+        textured &= depth > 0
+        near = np.abs(curve.argmin(-1) - 30) <= 2
+        share = float(near[textured].mean())
+        print(f"  debug FIRST_INIT (5 views): {summary['first_init_s']:.3f} "
+              f"s; weak_ncc_cost.bin {len(raw)} bytes; the curve's minimum "
+              f"within 2 steps of the solved depth at {share:.4f} of "
+              f"{int(textured.sum())} textured pixels", flush=True)
+        if share < 0.9:
+            raise AssertionError(f"cost curves: minimum near the solved "
+                                 f"depth at {share:.4f} < 0.9")
+        st, dyn = round_pass_params(1, 2, 1, base, 0.0, 1.0)
+        t0 = time.perf_counter()
+        runner.run_view_pass(sc.problems[0], st, dyn, 1, Rooted(
+            runner.draws, fold_in(fold_in((), 1), 0)))
+        torch.cuda.synchronize()
+        summary["refine_iter_s"] = time.perf_counter() - t0
+        nmap = read_bin_mat(res / "neighbour_map.bin")
+        raw = (res / "neighbour.bin").read_bytes()
+        count, num = np.frombuffer(raw[:8], np.int32).tolist()
+        if (nmap.shape != (H, W) or count != int((nmap >= 0).sum())
+                or count <= 0 or num != 12
+                or len(raw) != 8 + 4 * count * num):
+            raise AssertionError(f"neighbour files: map {nmap.shape}, "
+                                 f"header {count} x {num}, {len(raw)} bytes")
+        launches = {k: n for k, n in counts().items() if n}
+        print(f"  debug APD REFINE_ITER (view 0): "
+              f"{summary['refine_iter_s']:.3f} s; neighbour.bin {count} "
+              f"pixels x {num} entries; launches in the two passes "
+              f"{launches}", flush=True)
+        summary.update(curve_min_share=share, neighbour_pixels=count,
+                       launches=launches)
+
+        have_pil = importlib.util.find_spec("PIL") is not None
+        summary["medium_results"] = have_pil
+        if have_pil:
+            two = write_scene_dir(make_scene(num_views=2, height=H, width=W,
+                                             seed=2), Path(tmp) / "two")
+            out = Path(tmp) / "medium"
+            cfg = SceneConfig(show_medium_result=True,
+                              output_folder=str(out))
+            SceneRunner(load_scene(two), cfg, PMStatic(
+                max_iterations=ITERS, cost_backend="fused"), verbose=False,
+                device=dev).run()
+            names = sorted(p.name for p in (out / "00000000").iterdir())
+            want = sorted(f"{k}_{i}.jpg" for k in ("depths", "normals",
+                                                   "weak") for i in range(4))
+            if names != want:
+                raise AssertionError(f"medium results: {names}")
+            print(f"  medium results: {len(names)} jpgs a view", flush=True)
+        else:
+            print("  medium results: not run (PIL is not installed here; "
+                  "the jpgs are PIL's)", flush=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"  debug phase: {summary['phase_s']:.1f} s", flush=True)
+    return summary
 
 
 def weak_parts(torch, dev, scene, first):
@@ -950,41 +1148,20 @@ def profile_phase(torch, passes):
     """One more run of each pass under torch.profiler: the device's busy
     time (the union of its kernel and copy intervals) against the pass's
     wall time, and the device time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     ours = {"ncc_fused_kernel": "ncc_fused", "sweep_kernel": "sweep",
             "geom_kernel": "geom", "anchor_kernel": "anchor",
             "warp_kernel": "warp"}
     result = {}
     for label, fn in passes.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start)
-        busy, end = 0.0, float("-inf")
-        for a, b in sorted(spans):
-            if b > end:
-                busy += b - max(a, end)
-                end = b
+        spans, by_name, busy, wall = device_profile(torch, fn)
         kernel_us = {k: 0.0 for k in ours.values()}
         for name, us in by_name.items():
             for tag, k in ours.items():
                 if tag in name:
                     kernel_us[k] += us
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        row = {"wall_s": wall, "device_busy_s": busy * 1e-6,
-               "device_idle_share": 1.0 - busy * 1e-6 / wall,
+        row = {"wall_s": wall, "device_busy_s": busy,
+               "device_idle_share": 1.0 - busy / wall,
                "device_events": len(spans),
                "kernel_s": {k: us * 1e-6 for k, us in kernel_us.items()},
                "other_device_s": (sum(by_name.values())
@@ -1320,7 +1497,7 @@ def main() -> int:
     print("path phase, weak-pixel passes (fused backend, 608x800, V=10):",
           flush=True)
     (runs["apd"], summary["apd"], apd_passes, band, band_first,
-     band_before) = apd_phase(torch, dev, scene, first)
+     band_before, band_apd) = apd_phase(torch, dev, scene, first)
     passes.update(apd_passes)
     print("path phase, the warp cost backend (608x800, V=10):", flush=True)
     runs["warp"], summary["warp"], warp_passes = warp_phase(torch, dev,
@@ -1328,10 +1505,23 @@ def main() -> int:
     passes.update(warp_passes)
     print("path phase, sparse-patch taps (anchor_taps=3, fused backend):",
           flush=True)
-    runs["taps"], summary["taps"], taps_passes = taps_phase(
+    runs["taps"], summary["taps"], taps_passes, band_taps = taps_phase(
         torch, dev, scene, first, band, band_first, band_before,
         summary["apd"]["band"]["region_acc2_refine_iter"])
     passes.update(taps_passes)
+    print("exact phase (the exact deformable oracle, band scene, fused "
+          "backend):", flush=True)
+    b1, bt = summary["apd"]["band"], summary["taps"]["band"]
+    runs["exact"], summary["exact"] = exact_phase(
+        torch, dev, band, band_first, band_before, {
+            "REFINE_ITER (APD, geom)": (
+                band_apd, b1["refine_iter_s"], b1["acc2"],
+                b1["region_acc2_refine_iter"]),
+            "REFINE_ITER (APD, geom, anchor_taps=3)": (
+                band_taps, bt["s"], bt["acc2"], bt["region_acc2"])})
+    print("debug phase (debug_dumps and show_medium_result through "
+          "SceneRunner):", flush=True)
+    summary["debug"] = debug_phase(torch, dev, scene, dict(seed=2))
     print("kernel phase, K4 at the bench scene's own compaction:", flush=True)
     rows += k4_path_rows(torch, dev, scene, first)
     print(f"scene phase (the scene command, {SCENE_VIEWS} views, {H}x{W}, "

@@ -1,18 +1,21 @@
 """Command-line entry points of the port (counterparts of
-``dvpmvs/cli/run.py``'s ``scene`` and ``prior`` commands):
+``dvpmvs/cli/run.py``'s commands):
 
   python -m dvpmvs_torch.cli.run scene <dense_folder> [options]
   python -m dvpmvs_torch.cli.run prior <dense_folder> [options]
+  python -m dvpmvs_torch.cli.run convert <colmap_dense> <out>
+  python -m dvpmvs_torch.cli.run synth <out_folder>
 
 ``scene`` runs the schedule on one scene folder (MVSNet layout) and fuses
 the views into ``<output>/APD.ply``; ``prior`` writes the
 Depth-Anything-V2 maps ``dep/%08d.dmb`` that ``scene --mono-prior`` reads
 with the folder's ``sfm/`` points.  Both run on the card unless ``--device
-cpu`` is given.  The flags are the JAX commands'; ``--backend`` takes the
-port's names (``fused``, the counterpart of JAX's ``pallas``, which it also
+cpu`` is given.  ``convert`` turns a COLMAP model into that layout (images
+through PIL) and ``synth`` writes a synthetic scene folder; neither uses a
+device.  The flags are the JAX commands'; ``--backend`` takes the port's
+names (``fused``, the counterpart of JAX's ``pallas``, which it also
 accepts, ``exact`` and ``warp``).  ``--mesh-views`` and ``--mesh-tiles``
-above 1, ``--show-medium-result`` and ``--debug-dumps`` raise: they are not
-ported yet (ROADMAP.md, Queue 1).
+above 1 raise: they are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ def _cmd_scene(args) -> int:
                        load_colors=True)
     out_dir = Path(args.output or (Path(args.dense_folder) / "APD"))
     cfg = SceneConfig(
+        output_folder=str(out_dir),
         max_base_size=args.max_base_size,
         geometric_passes=args.geometric_passes,
         show_medium_result=args.show_medium_result,
@@ -120,6 +124,26 @@ def _cmd_prior(args) -> int:
     return 0
 
 
+def _cmd_convert(args) -> int:
+    from ..io.colmap import convert_colmap
+
+    convert_colmap(args.dense_folder, args.save_folder,
+                   model_subdir=args.model_subdir,
+                   scale_factor=args.scale_factor, max_d=args.max_d)
+    print(f"converted {args.dense_folder} -> {args.save_folder}")
+    return 0
+
+
+def _cmd_synth(args) -> int:
+    from ..utils.synthetic import make_scene, write_scene_dir
+
+    scene = make_scene(num_views=args.views, height=args.height,
+                       width=args.width, seed=args.seed)
+    write_scene_dir(scene, args.out_folder)
+    print(f"wrote synthetic scene -> {args.out_folder}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dvpmvs_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -160,12 +184,15 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler Chrome trace here")
     ps.add_argument("--show-medium-result", action="store_true",
-                    help="not ported yet")
+                    help="write per-pass depth/normal/weak jpgs "
+                         "(main.cpp:396-403; needs PIL)")
     ps.add_argument("--metrics", action="store_true",
                     help="dump per-pass and fusion timings to "
                          "<output>/metrics.json")
     ps.add_argument("--debug-dumps", action="store_true",
-                    help="not ported yet")
+                    help="write per-pass sweep cost curves and anchor lists "
+                         "(reference DEBUG_COST_LINE / DEBUG_NEIGHBOUR "
+                         "layouts) to each view's result folder")
     ps.add_argument("--seed", type=int, default=0)
     ps.set_defaults(fn=_cmd_scene)
 
@@ -179,6 +206,22 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--tiny", action="store_true",
                     help="tiny random model (pipeline tests)")
     pp.set_defaults(fn=_cmd_prior)
+
+    pc = sub.add_parser("convert", help="COLMAP model -> MVSNet layout")
+    pc.add_argument("dense_folder")
+    pc.add_argument("save_folder")
+    pc.add_argument("--model-subdir", default="sparse")
+    pc.add_argument("--scale-factor", type=int, default=1)
+    pc.add_argument("--max-d", type=int, default=192)
+    pc.set_defaults(fn=_cmd_convert)
+
+    py = sub.add_parser("synth", help="write a synthetic demo scene")
+    py.add_argument("out_folder")
+    py.add_argument("--views", type=int, default=5)
+    py.add_argument("--height", type=int, default=192)
+    py.add_argument("--width", type=int, default=256)
+    py.add_argument("--seed", type=int, default=0)
+    py.set_defaults(fn=_cmd_synth)
     return p
 
 

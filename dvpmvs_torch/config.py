@@ -114,11 +114,12 @@ class SceneConfig:
     """Host-side schedule options: the fields of ``dvpmvs.config.SceneConfig``
     that ``SceneRunner`` reads, with their defaults.  The port runs the
     serial schedule on one device: ``mesh_views`` and ``mesh_tiles`` above 1
-    and ``show_medium_result`` raise in ``SceneRunner``."""
+    raise in ``SceneRunner``."""
 
+    output_folder: str = ""            # where show_medium_result writes
     max_base_size: int = 800           # pyramid: halve until maxdim <= this
     geometric_passes: int = 3          # geometric passes per round
-    show_medium_result: bool = False
+    show_medium_result: bool = False   # per-pass jpgs (main.cpp:396-403)
     full_res_round: bool = False       # add the full-resolution round the
                                        # reference never runs (main.cpp:450)
     seed: int = 0

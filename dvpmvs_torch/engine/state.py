@@ -42,6 +42,13 @@ class PassOutput:
     sel_views: torch.Tensor      # [H, W, V] bool
     view_weights: torch.Tensor   # [H, W, V]
     radius: torch.Tensor         # [H, W]
-    # passes with use_APD: weak pixels past the compaction budget at the
-    # start of the pass (int32 scalar, 0 when all fit); None otherwise
+    # debug introspection (PMStatic.debug_dumps; None otherwise): the
+    # reference's DEBUG_COST_LINE / DEBUG_NEIGHBOUR buffers
+    # (APD.cu:3990-3997, 4455-4470)
+    cost_line: Optional[torch.Tensor] = None      # [61, H, W] sweep curves
+    anchors_xy: Optional[torch.Tensor] = None     # [A, H, W, 2] int32 (x, y)
+    anchors_valid: Optional[torch.Tensor] = None  # [A, H, W] bool
+    # passes with use_APD outside exact mode: weak pixels past the
+    # compaction budget at the start of the pass (int32 scalar, 0 when all
+    # fit); None otherwise
     weak_overflow: Optional[torch.Tensor] = None

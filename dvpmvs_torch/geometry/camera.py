@@ -12,6 +12,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import fmath
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -26,7 +28,7 @@ class Camera:
     @property
     def c(self) -> torch.Tensor:
         """Camera center in world coordinates: c = -R^T t."""
-        return -torch.einsum("...ji,...j->...i", self.R, self.t)
+        return -fmath.rmatvec(self.R, self.t)
 
     @property
     def fx(self) -> torch.Tensor:

@@ -59,25 +59,25 @@ def backproject_cam(x, y, depth, cam: Camera) -> torch.Tensor:
 
 def cam_to_world(X_cam: torch.Tensor, cam: Camera) -> torch.Tensor:
     """Camera-frame point -> world: X = R^T X_cam + c."""
-    return torch.einsum("...ji,...j->...i", cam.R, X_cam) + cam.c
+    return fmath.rmatvec(cam.R, X_cam) + cam.c
 
 
 def world_to_cam_point(X_world: torch.Tensor, cam: Camera) -> torch.Tensor:
-    return torch.einsum("...ij,...j->...i", cam.R, X_world) + cam.t
+    return fmath.matvec(cam.R, X_world) + cam.t
 
 
 def project(X_world: torch.Tensor, cam: Camera
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """World point -> (pixel xy [..., 2], depth)."""
     xc = world_to_cam_point(X_world, cam)
-    h = torch.einsum("...ij,...j->...i", cam.K, xc)
+    h = fmath.matvec(cam.K, xc)
     depth = h[..., 2]
     return h[..., :2] / depth[..., None], depth
 
 
 def plane_to_world(plane: torch.Tensor, x, y, ref: Camera) -> torch.Tensor:
     """(n_ref, w) -> (n_world, depth) persistence form."""
-    n_world = torch.einsum("ji,...j->...i", ref.R, plane[..., :3])
+    n_world = fmath.rmatvec(ref.R, plane[..., :3])
     depth = depth_from_plane(plane, x, y, ref)
     return torch.cat([n_world, depth[..., None]], dim=-1)
 
@@ -85,7 +85,7 @@ def plane_to_world(plane: torch.Tensor, x, y, ref: Camera) -> torch.Tensor:
 def plane_from_world(world_plane: torch.Tensor, x, y, ref: Camera
                      ) -> torch.Tensor:
     """(n_world, depth) -> (n_ref, w) compute form."""
-    n_ref = torch.einsum("ij,...j->...i", ref.R, world_plane[..., :3])
+    n_ref = fmath.matvec(ref.R, world_plane[..., :3])
     w = dist_to_origin(n_ref, x, y, world_plane[..., 3], ref)
     return torch.cat([n_ref, w[..., None]], dim=-1)
 
@@ -93,8 +93,8 @@ def plane_from_world(world_plane: torch.Tensor, x, y, ref: Camera
 def relative_pose(ref: Camera, src: Camera
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """R_rel = R_src R_ref^T,  t_rel = R_src (C_ref - C_src)."""
-    R_rel = torch.einsum("...ik,jk->...ij", src.R, ref.R)
-    t_rel = torch.einsum("...ij,...j->...i", src.R, ref.c - src.c)
+    R_rel = fmath.matmul_bt(src.R, ref.R)
+    t_rel = fmath.matvec(src.R, ref.c - src.c)
     return R_rel, t_rel
 
 
@@ -103,8 +103,8 @@ def homography_terms(ref: Camera, src: Camera
     """Per-view constants of the plane-induced homography:
     H u = M u - b (n . u)/w with M = K_src R_rel, b = K_src t_rel."""
     R_rel, t_rel = relative_pose(ref, src)
-    M = torch.einsum("...ij,...jk->...ik", src.K, R_rel)
-    b = torch.einsum("...ij,...j->...i", src.K, t_rel)
+    M = fmath.matmul(src.K, R_rel)
+    b = fmath.matvec(src.K, t_rel)
     return M, b
 
 

@@ -16,8 +16,9 @@ the reference.
 anchors; the words' u8 weight and ref quantization is the semantics JAX's
 oracle and kernel share).  ``anchor_cost_term`` is the candidate-independent
 variant over the current plane's warped field (K5), kept, as in JAX, beside
-the engine: nothing on the engine's path calls it.  The exact 9-tap oracle
-(``exact_deformable``) is not ported yet.
+the engine: nothing on the engine's path calls it.  ``deformable_cost_exact``
+is the reference-exact 9-tap oracle (``PMStatic.exact_deformable``): plain
+PyTorch, as JAX's is XLA code and not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -356,3 +357,108 @@ def anchor_cost_term_for_plane(ctx: CostContext, plane_field: torch.Tensor,
         ctx.src_imgs, ctx.M, ctx.b, ctx.src_wh, slot_q(plane_field),
         af.rax, af.ray, af.ref_a, af.w_col, af.valid[None] & af.sees,
         tap_words, (ctx.inv_fx, ctx.inv_fy))
+
+
+def deformable_cost_exact(ctx_yzl: CostContext, plane_candidate: torch.Tensor,
+                          anchors: AnchorResult, patch_off: torch.Tensor,
+                          sel_views: torch.Tensor, ref_img: torch.Tensor,
+                          sigma_color) -> torch.Tensor:
+    """EXACT ``ComputeBilateralNCCNew`` (APD.cu:835-1021): per anchor and
+    per view a 9-tap sparse-patch NCC with the anchor's per-view candidate
+    offsets (``patch_off`` [V, 8, H, W, 2], ``patch_candidates``), every tap
+    warped through the candidate plane of the EVALUATED pixel.  Zero-offset
+    slots fall back to the +-5 grid, slot 8 is the anchor center, and a
+    visible anchor that is not selected counts as COST_MAX.  plane_candidate
+    [H, W, 4] (full grid) -> 0.25 x center NCC + 0.75 x the anchors' mean
+    [H, W, V].
+
+    The gathers of a view run batched over taps and anchors ([9, A, H, W]);
+    the sums keep JAX's order: taps k = 0..8 in sequence into the six
+    moment sums, anchors a = 0..A-1 in sequence into the cost sum."""
+    H, W = ref_img.shape
+    V = ctx_yzl.num_views
+    dev = ref_img.device
+    sc = torch.as_tensor(sigma_color, dtype=torch.float32, device=dev)
+    q = slot_q(plane_candidate)                             # [H, W, 3]
+    q0, q1, q2 = q[..., 0], q[..., 1], q[..., 2]
+    rx_f, ry_f = ctx_yzl.rx.reshape(-1), ctx_yzl.ry.reshape(-1)
+
+    def warp(v, tidx):
+        """Source position of the ref pixels ``tidx`` under the evaluated
+        pixel's candidate plane."""
+        rx, ry = rx_f[tidx], ry_f[tidx]
+        m, bv = ctx_yzl.M[v], ctx_yzl.b[v]
+        s_ = q0 * rx + q1 * ry + q2
+        hx = m[0, 0] * rx + m[0, 1] * ry + m[0, 2] - bv[0] * s_
+        hy = m[1, 0] * rx + m[1, 1] * ry + m[1, 2] - bv[1] * s_
+        hz = m[2, 0] * rx + m[2, 1] * ry + m[2, 2] - bv[2] * s_
+        front = hz > 0
+        hz = _guard(hz)
+        return hx / hz, hy / hz, front
+
+    ax = torch.clamp(anchors.coords[..., 0], 0, W - 1).to(torch.int64)
+    ay = torch.clamp(anchors.coords[..., 1], 0, H - 1).to(torch.int64)
+    aidx = ay * W + ax                                      # [A, H, W]
+    A = aidx.shape[0]
+    sees_all = sel_views.reshape(-1, V)[aidx]               # [A, H, W, V]
+    # tap offsets: slots 0..7 from the candidates (empty -> the fallback
+    # grid), slot 8 the anchor center
+    fb = torch.as_tensor(TAP_FALLBACK, dtype=torch.int64, device=dev)
+    fb_i = fb[:, 0].reshape(8, 1, 1, 1)
+    fb_j = fb[:, 1].reshape(8, 1, 1, 1)
+    zero = torch.zeros((1, A, H, W), dtype=torch.int64, device=dev)
+    ref_f = ref_img.reshape(-1)
+    center = ncc_cost(ctx_yzl, plane_candidate)             # [H, W, V]
+
+    out = []
+    for v in range(V):
+        sx, sy, front = warp(v, aidx)                       # [A, H, W]
+        in_view = ((sx >= 0) & (sx < ctx_yzl.src_wh[v, 0]) & (sy >= 0)
+                   & (sy < ctx_yzl.src_wh[v, 1]) & front)
+        off = patch_off[v].reshape(8, H * W, 2)[:, aidx].to(torch.int64)
+        oi, oj = off[..., 0], off[..., 1]                   # [8, A, H, W]
+        empty = (oi == 0) & (oj == 0)
+        oi = torch.cat([torch.where(empty, fb_i, oi), zero])
+        oj = torch.cat([torch.where(empty, fb_j, oj), zero])
+        tx = torch.clamp(ax + oi, 0, W - 1)                 # [9, A, H, W]
+        ty = torch.clamp(ay + oj, 0, H - 1)
+        tidx = ty * W + tx
+        ref_pix = ref_f[tidx]
+        px, py, _ = warp(v, tidx)
+        src_pix = bilinear_sample(ctx_yzl.src_imgs[v], px, py)
+        wgt = fmath.exp(-torch.abs(ref_pix - ref_img) / (2.0 * sc * sc))
+        wr = wgt * ref_pix
+        ws = wgt * src_pix
+        terms = torch.stack([wr, wr * ref_pix, ws, ws * src_pix,
+                             wr * src_pix, wgt], dim=1)     # [9, 6, A, H, W]
+        sums = terms[0]
+        for k in range(1, 9):
+            sums = sums + terms[k]
+        inv = 1.0 / torch.clamp(sums[5], min=1e-30)
+        m_r, m_r2 = sums[0] * inv, sums[1] * inv
+        m_s, m_s2 = sums[2] * inv, sums[3] * inv
+        m_rs = sums[4] * inv
+        var_r = m_r2 - m_r * m_r
+        var_s = m_s2 - m_s * m_s
+        cov = m_rs - m_r * m_s
+        ncc = cov / torch.clamp(fmath.sqrt(torch.clamp(var_r * var_s,
+                                                       min=0.0)), min=1e-30)
+        c = torch.clamp(1.0 - ncc, 0.0, COST_MAX)
+        c = torch.where((var_r < _K_MIN_VAR) | (var_s < _K_MIN_VAR),
+                        torch.full_like(c, COST_MAX), c)
+        # in-view anchors count (unselected ones as COST_MAX, the
+        # reference's NaN quirk); out-of-view ones count COST_MAX only
+        # where they see the view
+        sees = sees_all[..., v]
+        counted = anchors.valid & (in_view | sees)
+        contrib = torch.where(in_view & sees, c, torch.full_like(c, COST_MAX))
+        contrib = torch.where(counted, contrib, torch.zeros_like(c))
+        acc = contrib[0]
+        for a in range(1, A):
+            acc = acc + contrib[a]
+        cnt = torch.sum(counted.to(torch.int32), dim=0)
+        strong = torch.clamp(acc / torch.clamp(cnt, min=1).to(torch.float32),
+                             max=COST_MAX)
+        cv = center[..., v]
+        out.append(torch.where(cnt > 0, 0.25 * cv + 0.75 * strong, cv))
+    return torch.stack(out, dim=-1)

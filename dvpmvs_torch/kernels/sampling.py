@@ -65,7 +65,7 @@ def view_direction_set(depth, sel_views, rx, ry, ref_cam: Camera,
     srx = (sxi - e(K[:, 0, 2])) / e(K[:, 0, 0])
     sry = (syi - e(K[:, 1, 2])) / e(K[:, 1, 1])
     ray_src = norm3(srx, sry, torch.ones_like(srx))          # [3, V, H, W]
-    Rc = torch.einsum("ij,vkj->vik", ref_cam.R, R)           # R_ref R_src^T
+    Rc = fmath.matmul_bt(ref_cam.R, R)                       # R_ref R_src^T
     src_dirs = torch.stack(
         [e(Rc[:, i, 0]) * ray_src[0] + e(Rc[:, i, 1]) * ray_src[1]
          + e(Rc[:, i, 2]) * ray_src[2] for i in range(3)], dim=1)

@@ -97,8 +97,12 @@ def _sweep_costs(ctx: CostContext, gctx, geom_factor, normal, depth_stack,
 def depth_to_weak(ctx: CostContext, gctx, geom_factor, normal, depth,
                   sel_views, view_weights, xs, ys, ref_cam: Camera,
                   src_cams: Camera, depth_min, depth_max, weak_peak_radius,
-                  radius_steps: int = 30) -> torch.Tensor:
-    """Reclassify pixels -> int8 [H, W] of PixelState."""
+                  radius_steps: int = 30, return_curve: bool = False
+                  ) -> torch.Tensor:
+    """Reclassify pixels -> int8 [H, W] of PixelState.
+
+    ``return_curve`` also returns the [2*radius_steps+1, H, W] sweep cost
+    curves (the reference's DEBUG_COST_LINE buffer, APD.cu:3990-3997)."""
     baseline, nsel = _mean_selected_baseline(sel_views, ref_cam, src_cams)
     fx = ref_cam.fx
     if _field_sweep_eligible(ctx):
@@ -115,8 +119,9 @@ def depth_to_weak(ctx: CostContext, gctx, geom_factor, normal, depth,
                                sel_views, view_weights, xs, ys, ref_cam,
                                depth_min, depth_max)
     p_costs = torch.clamp(p_costs, max=COST_MAX)
-    return classify_from_sweep(p_costs, depth, nsel, radius_steps,
+    weak = classify_from_sweep(p_costs, depth, nsel, radius_steps,
                                weak_peak_radius)
+    return (weak, p_costs) if return_curve else weak
 
 
 def classify_from_sweep(p_costs, depth, nsel, radius_steps: int,

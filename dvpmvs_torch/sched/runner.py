@@ -19,15 +19,15 @@ device, the card unless the caller asks for the CPU.  Every view pass draws
 from the runner's draw source below the key path ``fold_in(iteration) /
 fold_in(view id)``, JAX's ``fold_in(fold_in(PRNGKey(seed), iteration),
 rid)``: production uses ``TorchDraws(seed)``, a test may give the
-jax-backed source.  Not ported here (each raises ``NotImplementedError``
-naming its ROADMAP.md item): the batched and tiled multi-device passes,
-debug dumps and medium results.
+jax-backed source.  Not ported here (it raises ``NotImplementedError``
+naming its ROADMAP.md item): the batched and tiled multi-device passes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import struct
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -97,10 +97,6 @@ class SceneRunner:
         if self.config.mesh_views > 1 or self.config.mesh_tiles > 1:
             raise _not_ported("a pass over several devices (mesh_views, "
                               "mesh_tiles > 1)", "6")
-        if self.config.show_medium_result:
-            raise _not_ported("show_medium_result", "5")
-        if self.base_static.debug_dumps:
-            raise _not_ported("debug_dumps", "5")
         self.mono_planes = mono_planes or {}
         self.device = resolve_device(device)
         self.draws = (draws if draws is not None
@@ -268,6 +264,51 @@ class SceneRunner:
         self.state[rid] = ViewState(
             depth=host(out.depth), normal_world=host(out.normal_world),
             weak=host(out.weak), sel_views=sel, radius=host(out.radius))
+        if static.debug_dumps:
+            self._write_debug_dumps(problem, out)
+
+    # ------------------------------------------------------------------
+    def _write_debug_dumps(self, problem, out) -> None:
+        """The reference's debug dumps of one view pass (PMStatic.debug_dumps)
+        into its result folder, in JAX's byte layout:
+
+        * ``weak_ncc_cost.bin``: the disparity-sweep cost curves in the
+          DEBUG_COST_LINE layout (APD.cu:4507-4524): int32 [width, height, 61],
+          then f32 [H, W, 61] row-major per pixel.
+        * ``neighbour_map.bin`` / ``neighbour.bin``: per-pixel anchor lists in
+          the DEBUG_NEIGHBOUR layout (APD.cu:4455-4470): neighbour_map is a
+          WriteBinMat int32 map (index into the list, -1 elsewhere);
+          neighbour.bin holds int32 [count, neighbour_num], then int16 (x, y)
+          pairs, the pixel itself first, invalid anchors (-1, -1).
+        """
+        folder = Path(problem.result_folder)
+        folder.mkdir(parents=True, exist_ok=True)
+        if out.cost_line is not None:
+            curve = np.moveaxis(out.cost_line.cpu().numpy(), 0, -1)
+            h, w, n = curve.shape
+            with open(folder / "weak_ncc_cost.bin", "wb") as f:
+                f.write(struct.pack("<3i", w, h, n))
+                f.write(np.ascontiguousarray(curve, np.float32).tobytes())
+        if out.anchors_xy is not None:
+            av = out.anchors_valid.cpu().numpy()              # [A, H, W]
+            axy = out.anchors_xy.cpu().numpy()                # [A, H, W, 2]
+            has = av.any(axis=0)
+            ys2, xs2 = np.nonzero(has)
+            wc = len(ys2)
+            A = av.shape[0]
+            ent = np.full((wc, A + 1, 2), -1, np.int16)
+            ent[:, 0, 0] = xs2
+            ent[:, 0, 1] = ys2
+            sel_a = axy[:, ys2, xs2]                          # [A, wc, 2]
+            ok_a = av[:, ys2, xs2]                            # [A, wc]
+            ent[:, 1:, :] = np.where(ok_a[..., None], sel_a,
+                                     -1).transpose(1, 0, 2)
+            nmap = np.full(has.shape, -1, np.int32)
+            nmap[ys2, xs2] = np.arange(wc, dtype=np.int32)
+            write_bin_mat(folder / "neighbour_map.bin", nmap)
+            with open(folder / "neighbour.bin", "wb") as f:
+                f.write(struct.pack("<2i", wc, A + 1))
+                f.write(ent.tobytes())
 
     # ------------------------------------------------------------------
     def run(self, checkpoint_dir: Optional[Path] = None,
@@ -313,7 +354,27 @@ class SceneRunner:
         self._log(f"round {round_idx} pass {pass_idx} "
                   f"(scale 1/{scale_size}, state={static.state.name}) "
                   f"done in {time.time() - t0:.1f}s")
+        if self.config.show_medium_result and self.config.output_folder:
+            self.write_medium_results(Path(self.config.output_folder))
         self.iteration += 1
+
+    def write_medium_results(self, out_root: Path) -> None:
+        """Per-pass depth/normal/weak visualizations (main.cpp:396-403,
+        show_medium_result): <out>/<view>/{depths,normals,weak}_<iter>.jpg
+        (encoded by PIL)."""
+        from ..utils.viz import (write_depth_viz, write_normal_viz,
+                                 write_weak_viz)
+
+        for rid, st in self.state.items():
+            d = out_root / format_index(rid)
+            d.mkdir(parents=True, exist_ok=True)
+            cam = self.scene.cameras[rid]
+            write_depth_viz(d / f"depths_{self.iteration}.jpg", st.depth,
+                            float(cam.depth_min) * 0.6,
+                            float(cam.depth_max) * 1.2)
+            write_normal_viz(d / f"normals_{self.iteration}.jpg",
+                             st.normal_world)
+            write_weak_viz(d / f"weak_{self.iteration}.jpg", st.weak)
 
     # ------------------------------------------------------------------
     def write_benchmark_outputs(self, out_root: Path, view_ids=None) -> None:

@@ -659,3 +659,58 @@ def test_prior_and_two_round_scene_on_the_card(card, tmp_path):
     assert _build.MODE_LAUNCHES.get("geom/parity", 0) > 0
     pts, _ = read_ply(folder / "APD" / "APD.ply")
     assert len(pts) > 0 and np.isfinite(pts).all()
+
+
+def test_exact_oracle_on_the_card_matches_the_cpu(card):
+    """The exact deformable oracle on the card (K1 for the center window)
+    against its CPU run on the same context, anchors, candidates and
+    plane field (a band of the ground truth 10 % too far).  The CPU run
+    takes its tap weights' exp from the card (the two devices' exp round
+    differently, and the oracle's near-zero variances amplify a last
+    bit): then every other operation rounds alike, and the bound is the
+    kernel tests' measure at 1e-5."""
+    import dataclasses
+
+    from dvpmvs_torch import fmath
+    from dvpmvs_torch.config import PixelState
+    from dvpmvs_torch.kernels import deformable, weak
+    from dvpmvs_torch.kernels.weak import AnchorResult
+    from dvpmvs_torch.rng import TorchDraws
+    scene, dev = card["scene"], card["dev"]
+    ref = scene.cameras[0]
+    img = torch.as_tensor(scene.images)
+    ctx = build_cost_context(img[0], img[1:], ref,
+                             stack_cameras(scene.cameras[1:]), 5.0, 3.0,
+                             backend="fused", color_only_weights=True)
+    xs, ys = _grid(H, W, "cpu")
+    band = torch.zeros((H, W), dtype=torch.bool)
+    band[12:30, 30:130] = True
+    depth = torch.as_tensor(scene.gt_depth[0])
+    plane = plane_from_normal_depth(
+        torch.as_tensor(scene.gt_normal[0]),
+        torch.where(band, depth * 1.1, depth), xs, ys, ref)
+    wk = torch.where(band, int(PixelState.WEAK),
+                     int(PixelState.STRONG)).to(torch.int8)
+    anchors = weak.find_anchors(wk, plane, ref, TorchDraws(0, "cpu"), (),
+                                rotate_time=2)
+    sel = torch.as_tensor(np.random.default_rng(2).uniform(
+        size=(H, W, V)) < 0.8)
+    patch_off = weak.patch_candidates(img[0], sel, 3.0)
+    args = (plane, anchors, patch_off, sel, img[0])
+    exp = fmath.exp
+    try:
+        fmath.exp = lambda x: exp(x.to(dev)).to(x.device)
+        want = deformable.deformable_cost_exact(ctx, *args, 3.0)
+    finally:
+        fmath.exp = exp
+    to = lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a
+    ctx_d = dataclasses.replace(ctx, **{
+        f.name: to(getattr(ctx, f.name)) for f in dataclasses.fields(ctx)})
+    _build.reset_launches()
+    got = deformable.deformable_cost_exact(
+        ctx_d, plane.to(dev), AnchorResult(*(to(a) for a in anchors)),
+        *(to(a) for a in args[2:]), 3.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ncc_fused"] == 1
+    assert bool(anchors.valid.any())
+    _agree(got.cpu(), want, bound=1e-5)

@@ -213,8 +213,9 @@ def test_scene_config_matches_jax():
     fields = lambda cls: {f.name: f.default for f in dataclasses.fields(cls)}
     want, got = fields(j_config.SceneConfig), fields(t_config.SceneConfig)
     assert sorted(got) == sorted([
-        "max_base_size", "geometric_passes", "show_medium_result",
-        "full_res_round", "seed", "mesh_views", "mesh_tiles"])
+        "output_folder", "max_base_size", "geometric_passes",
+        "show_medium_result", "full_res_round", "seed", "mesh_views",
+        "mesh_tiles"])
     assert got == {k: want[k] for k in got}
 
 
@@ -235,7 +236,8 @@ def test_connected_components_matches_jax():
 
 
 def test_weak_png_matches_jax(tmp_path):
-    """The port's stdlib PNG decodes (PIL) to the pixels of JAX's."""
+    """The port's stdlib PNG decodes (PIL) to the pixels of JAX's; any other
+    format is PIL's encoding of the same pixels, byte for byte JAX's."""
     from PIL import Image
     weak = np.random.default_rng(9).integers(0, 3, (13, 21)).astype(np.int8)
     t_viz.write_weak_viz(tmp_path / "t.png", weak)
@@ -244,8 +246,10 @@ def test_weak_png_matches_jax(tmp_path):
     assert got.mode == "RGB" and got.size == (21, 13)
     np.testing.assert_array_equal(np.asarray(got),
                                   np.asarray(Image.open(tmp_path / "j.png")))
-    with pytest.raises(ValueError, match="PNG"):
-        t_viz.write_weak_viz(tmp_path / "t.jpg", weak)
+    t_viz.write_weak_viz(tmp_path / "t.jpg", weak)
+    j_viz.write_weak_viz(tmp_path / "j.jpg", weak)
+    assert ((tmp_path / "t.jpg").read_bytes()
+            == (tmp_path / "j.jpg").read_bytes())
 
 
 def test_metrics_and_trace(tmp_path):

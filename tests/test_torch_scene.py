@@ -326,20 +326,53 @@ def test_cli_scene_runs_on_the_cpu(runs, tmp_path):
 
 @pytest.mark.parametrize("what", ["mesh_views", "mesh_tiles",
                                   "show_medium_result", "debug_dumps"])
-def test_modes_not_ported_raise(runs, what):
+def test_modes_not_ported_raise(runs, what, tmp_path):
+    """The multi-device passes (ROADMAP.md, Queue 1 item 6) raise.  The
+    medium results and the debug dumps (item 5) are ported: one FIRST_INIT
+    pass writes each view's depth, normal and weak jpgs, the bytes JAX's
+    ``write_medium_results`` writes from the same state, or each view's
+    ``weak_ncc_cost.bin`` (int32 [W, H, 61], then the f32 curves)."""
     _, folder, *_ = runs
-    scene = t_load_scene(folder, max_src_views=2)
+    scene = t_load_scene(folder, max_src_views=2,
+                         output_folder=tmp_path / "res")
     cfg, st = _config(t_config), _static(t_config)
-    if what in ("mesh_views", "mesh_tiles", "show_medium_result"):
-        cfg = dataclasses.replace(cfg, **{what: 2 if what.startswith("mesh")
-                                          else True})
+    if what in ("mesh_views", "mesh_tiles"):
+        cfg = dataclasses.replace(cfg, **{what: 2})
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, Queue 1 item 6"):
+            t_runner.SceneRunner(scene, cfg, st, verbose=False, device="cpu")
+        return
+    if what == "show_medium_result":
+        cfg = dataclasses.replace(cfg, show_medium_result=True,
+                                  output_folder=str(tmp_path / "med"))
     else:
         st = st.replace(debug_dumps=True)
-    item = {"mesh_views": "6", "mesh_tiles": "6", "show_medium_result": "5",
-            "debug_dumps": "5"}[what]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md, Queue 1 item {item}"):
-        t_runner.SceneRunner(scene, cfg, st, verbose=False, device="cpu")
+    r = t_runner.SceneRunner(scene, cfg, st, verbose=False, device="cpu")
+    r.run_schedule_pass(0, 0)
+    if what == "show_medium_result":
+        j_runner.SceneRunner.write_medium_results(_AtPass0(r),
+                                                  tmp_path / "jax")
+    for v in range(NV):
+        if what == "show_medium_result":
+            d = tmp_path / "med" / f"{v:08d}"
+            names = [f"{k}_0.jpg" for k in ("depths", "normals", "weak")]
+            assert sorted(p.name for p in d.iterdir()) == sorted(names)
+            for n in names:
+                assert ((d / n).read_bytes()
+                        == (tmp_path / "jax" / f"{v:08d}" / n).read_bytes())
+        else:
+            raw = (tmp_path / "res" / f"{v:08d}" /
+                   "weak_ncc_cost.bin").read_bytes()
+            assert np.frombuffer(raw[:12], np.int32).tolist() == [W, H, 61]
+            assert len(raw) == 12 + 4 * H * W * 61
+
+
+class _AtPass0:
+    """A runner seen at pass 0 (the pass whose results it wrote)."""
+
+    def __init__(self, runner):
+        self.state, self.scene, self.iteration = (runner.state, runner.scene,
+                                                  0)
 
 
 def test_label_map_from_mvs4_file_matches_jax(runs, tmp_path):

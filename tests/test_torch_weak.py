@@ -281,6 +281,16 @@ def test_apd_pass_on_the_warp_backend_runs(state):
 @pytest.mark.parametrize("field,value", [("exact_deformable", True),
                                          ("debug_dumps", True)])
 def test_apd_modes_not_ported_raise(field, value):
+    """Both modes are ported: the exact oracle's pass runs without the
+    compaction diagnostic; debug_dumps returns the [61, H, W] sweep curves
+    and the anchors as JAX does."""
     _, st, run, _ = _apd_problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run(st.replace(**{field: value}))
+    out = run(st.replace(**{field: value}))
+    assert bool(torch.isfinite(out.depth).all())
+    if field == "exact_deformable":
+        assert out.weak_overflow is None and out.cost_line is None
+    else:
+        assert tuple(out.cost_line.shape) == (61, H, W)
+        assert tuple(out.anchors_xy.shape[1:]) == (H, W, 2)
+        assert out.anchors_valid.shape == out.anchors_xy.shape[:3]
+        assert int(out.weak_overflow) >= 0
