@@ -14,8 +14,11 @@ cpu`` is given.  ``convert`` turns a COLMAP model into that layout (images
 through PIL) and ``synth`` writes a synthetic scene folder; neither uses a
 device.  The flags are the JAX commands'; ``--backend`` takes the port's
 names (``fused``, the counterpart of JAX's ``pallas``, which it also
-accepts, ``exact`` and ``warp``).  ``--mesh-views`` and ``--mesh-tiles``
-above 1 raise: they are not ported yet (ROADMAP.md, Queue 1).
+accepts, ``exact`` and ``warp``).  ``scene --mesh-views N`` runs the
+batched schedule over n = min(N, cards) ranks, one process per card joined
+by NCCL (with ``--device cpu``, N gloo ranks on the CPU); for n = 1 it runs
+in this process.  ``--mesh-tiles`` above 1 raises: the row-tiled pass is
+not ported yet (ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -26,6 +29,44 @@ from pathlib import Path
 
 
 def _cmd_scene(args) -> int:
+    """The scene command: in this process, or over ``--mesh-views`` ranks
+    (one process each; rank 0 writes the checkpoint, the metrics and the
+    PLY)."""
+    import tempfile
+
+    import torch
+
+    if args.mesh_tiles > 1:
+        raise NotImplementedError(
+            "the row-tiled pass (--mesh-tiles > 1) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 7)")
+    on_cpu = (args.device is not None
+              and torch.device(args.device).type == "cpu")
+    n = 1
+    if args.mesh_views > 1:
+        n = (args.mesh_views if on_cpu
+             else min(args.mesh_views, torch.cuda.device_count()))
+        print(f"[dvpmvs_torch] --mesh-views {args.mesh_views}: {n} rank(s)"
+              + ("" if on_cpu else f" ({torch.cuda.device_count()} card(s))")
+              + (", in this process" if n <= 1 else ""), flush=True)
+    if n <= 1:
+        return _scene(args, group=None, device=args.device)
+    from ..dist import launch
+
+    devices = ["cpu"] * n if on_cpu else [f"cuda:{r}" for r in range(n)]
+    threads = max(1, torch.get_num_threads() // n) if on_cpu else None
+    with tempfile.TemporaryDirectory() as work:
+        launch(_scene_rank, n, args=(vars(args),), workdir=work,
+               devices=devices, threads=threads)
+    return 0
+
+
+def _scene_rank(mesh, argd) -> int:
+    return _scene(argparse.Namespace(**argd), group=mesh.group,
+                  device=mesh.device)
+
+
+def _scene(args, group, device) -> int:
     from ..config import PMStatic, SceneConfig
     from ..fusion import run_fusion
     from ..io import load_scene
@@ -55,18 +96,20 @@ def _cmd_scene(args) -> int:
     mono_planes = _mono_planes(scene, args.dense_folder) if args.mono_prior \
         else {}
     runner = SceneRunner(scene, cfg, base_static=base,
-                         mono_planes=mono_planes, device=args.device)
+                         mono_planes=mono_planes, device=device, group=group)
     out_dir.mkdir(parents=True, exist_ok=True)
     runner.run(checkpoint_dir=out_dir if (args.checkpoint or args.resume)
                else None,
                resume=args.resume, profile_dir=args.profile_dir)
-    with runner.metrics.timed("fusion"):
-        pts, _ = run_fusion(runner.fusion_inputs(), variant=args.fusion,
-                            out_ply=str(out_dir / "APD.ply"),
-                            device=runner.device)
-    if args.metrics:
-        runner.metrics.dump(out_dir / "metrics.json")
-    print(f"fused {len(pts)} points -> {out_dir / 'APD.ply'}")
+    if runner.rank == 0:
+        with runner.metrics.timed("fusion"):
+            pts, _ = run_fusion(runner.fusion_inputs(), variant=args.fusion,
+                                out_ply=str(out_dir / "APD.ply"),
+                                device=runner.device)
+        if args.metrics:
+            runner.metrics.dump(out_dir / "metrics.json")
+        print(f"fused {len(pts)} points -> {out_dir / 'APD.ply'}")
+    runner.barrier()
     return 0
 
 
@@ -167,10 +210,12 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--no-radius", action="store_true",
                     help="disable the adaptive per-pixel NCC radius")
     ps.add_argument("--mesh-views", type=int, default=1,
-                    help="devices along the view axis (not ported above 1)")
+                    help="devices along the view axis: above 1, the batched "
+                         "schedule over min(N, cards) ranks, one process "
+                         "each (NCCL; with --device cpu, N gloo ranks)")
     ps.add_argument("--mesh-tiles", type=int, default=1,
                     help="devices along the image-row axis (not ported "
-                         "above 1)")
+                         "above 1: ROADMAP.md, Queue 1 item 7)")
     ps.add_argument("--full-res-round", action="store_true",
                     help="add the full-resolution round the reference "
                          "schedule stops before (main.cpp:450)")

@@ -112,9 +112,11 @@ class PMDynamic:
 @dataclasses.dataclass
 class SceneConfig:
     """Host-side schedule options: the fields of ``dvpmvs.config.SceneConfig``
-    that ``SceneRunner`` reads, with their defaults.  The port runs the
-    serial schedule on one device: ``mesh_views`` and ``mesh_tiles`` above 1
-    raise in ``SceneRunner``."""
+    that ``SceneRunner`` reads, with their defaults.  ``mesh_views`` above
+    1 runs each pass as one batch of all views, split over the ranks of the
+    runner's process group (in one process when it has none);
+    ``mesh_tiles`` above 1 raises in ``SceneRunner``: the row-tiled pass is
+    not ported (ROADMAP.md, Queue 1 item 7)."""
 
     output_folder: str = ""            # where show_medium_result writes
     max_base_size: int = 800           # pyramid: halve until maxdim <= this

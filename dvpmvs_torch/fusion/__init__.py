@@ -1,3 +1,3 @@
-from .fuse import FusionInputs, run_fusion
+from .fuse import FusionInputs, run_fusion, run_fusion_sharded
 
-__all__ = ["FusionInputs", "run_fusion"]
+__all__ = ["FusionInputs", "run_fusion", "run_fusion_sharded"]

@@ -19,8 +19,17 @@ device, the card unless the caller asks for the CPU.  Every view pass draws
 from the runner's draw source below the key path ``fold_in(iteration) /
 fold_in(view id)``, JAX's ``fold_in(fold_in(PRNGKey(seed), iteration),
 rid)``: production uses ``TorchDraws(seed)``, a test may give the
-jax-backed source.  Not ported here (it raises ``NotImplementedError``
-naming its ROADMAP.md item): the batched and tiled multi-device passes.
+jax-backed source.  So neither the rank count nor the partition changes a
+draw.
+
+With ``config.mesh_views > 1`` each pass runs as one batch of all problems
+(``run_pass_batched``, JAX's Phase A): over the ranks of the process group
+``group`` (dist/, one process per device), or in this process when there is
+none.  The batch reads the previous pass's depths of every view (Jacobi),
+where the serial loop reads this pass's depths of the views before it
+(Gauss-Seidel), so the two schedules differ.  The row-tiled pass
+(``mesh_tiles > 1``) raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from .. import resolve_device
 from ..config import (PMDynamic, PMStatic, PixelState, RunState, SceneConfig,
@@ -85,28 +95,89 @@ class ViewState:
     radius: np.ndarray
 
 
+# A view's state packed into one float32 [8, H, W] array for a collective:
+# depth, normal x y z, weak, selected-view bits, radius, and one spare
+# channel (zero).  float32 holds the int8 classes and the bits of up to 24
+# sources exactly, so unpacking returns the same bytes.
+PACK_CHANNELS = 8
+
+
+def pack_view(st: ViewState) -> np.ndarray:
+    if st.sel_views.shape[-1] > 24:
+        raise ValueError(f"a packed view holds the bits of at most 24 "
+                         f"sources, not {st.sel_views.shape[-1]}")
+    H, W = st.depth.shape
+    pack = np.zeros((PACK_CHANNELS, H, W), np.float32)
+    pack[0] = st.depth
+    pack[1:4] = np.moveaxis(st.normal_world, -1, 0)
+    pack[4] = st.weak
+    bits = np.zeros((H, W), np.float32)
+    for v in range(st.sel_views.shape[-1]):
+        bits += st.sel_views[..., v].astype(np.float32) * (1 << v)
+    pack[5] = bits
+    pack[6] = st.radius
+    return pack
+
+
+def unpack_view(pack: np.ndarray, num_views: int) -> ViewState:
+    """Inverse of :func:`pack_view` for a view with ``num_views`` sources."""
+    bits = pack[5].astype(np.int64)
+    return ViewState(
+        depth=np.ascontiguousarray(pack[0]),
+        normal_world=np.ascontiguousarray(np.moveaxis(pack[1:4], 0, -1)),
+        weak=pack[4].astype(np.int8),
+        sel_views=np.stack([(bits >> v) & 1 for v in range(num_views)],
+                           -1).astype(bool),
+        radius=np.ascontiguousarray(pack[6]))
+
+
 class SceneRunner:
     def __init__(self, scene: Scene, config: Optional[SceneConfig] = None,
                  base_static: Optional[PMStatic] = None,
                  mono_planes: Optional[Dict[int, np.ndarray]] = None,
                  verbose: bool = True, device=None,
-                 draws: Optional[DrawSource] = None):
+                 draws: Optional[DrawSource] = None, group=None):
         self.scene = scene
         self.config = config or SceneConfig()
         self.base_static = base_static or PMStatic()
-        if self.config.mesh_views > 1 or self.config.mesh_tiles > 1:
-            raise _not_ported("a pass over several devices (mesh_views, "
-                              "mesh_tiles > 1)", "6")
+        if self.config.mesh_tiles > 1:
+            raise _not_ported("the row-tiled pass (mesh_tiles > 1)", "7")
         self.mono_planes = mono_planes or {}
         self.device = resolve_device(device)
         self.draws = (draws if draws is not None
                       else TorchDraws(self.config.seed, device=self.device))
+        # the ranks of the views axis (run_pass_batched): this process is
+        # rank `rank` of `n_ranks`; with no group it runs every problem
+        from ..dist.sharding import group_rank, group_size
+
+        self.group = group
+        self.rank, self.n_ranks = group_rank(group), group_size(group)
+        if group is not None and self.n_ranks > self.config.mesh_views:
+            raise ValueError(
+                f"a group of {self.n_ranks} ranks needs mesh_views >= "
+                f"{self.n_ranks}, got {self.config.mesh_views}")
         self.state: Dict[int, ViewState] = {}
         self.edge_cache: Dict[tuple, np.ndarray] = {}
         self.label_cache: Dict[tuple, np.ndarray] = {}
         self.verbose = verbose
         self.iteration = 0
         self.metrics = Metrics()
+        # device-resident batched round state (run_pass_batched): this
+        # rank's previous PassOutput, its cleaned visibility masks and the
+        # batch layout, so geometric passes feed init state and source
+        # depths (exchange_src_depths) from the device instead of
+        # rebuilding them from host numpy
+        self._dev = None
+        self._last_pass_device_resident = False
+        # multi-host runners mutate self.state between passes (foreign-view
+        # sync), so the device-resident shortcut must not skip the host
+        # state; MultiHostRunner sets this True
+        self._sync_each_pass = False
+        if self.config.mesh_views > 1:
+            self._log(f"mesh_views={self.config.mesh_views}: the batched "
+                      f"schedule over {self.n_ranks} rank(s)"
+                      + ("" if group is not None
+                         else " (no process group: this process)"))
 
         any_img = next(iter(scene.images.values()))
         self.rounds = num_rounds_for(any_img.shape[1], any_img.shape[0],
@@ -121,8 +192,15 @@ class SceneRunner:
 
     # ------------------------------------------------------------------
     def _log(self, msg):
-        if self.verbose:
+        if self.verbose and self.rank == 0:
             print(f"[dvpmvs_torch] {msg}", flush=True)
+
+    def barrier(self) -> None:
+        """Wait for every rank of the group (nothing with no group)."""
+        if self.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.group)
 
     def _scaled_view(self, image_id: int, scale_size: int):
         img = self.scene.images[image_id]
@@ -332,13 +410,26 @@ class SceneRunner:
                         continue
                     self.run_schedule_pass(i, pass_idx)
                     if checkpoint_dir is not None:
-                        self.checkpoint(Path(checkpoint_dir))
+                        if self.rank == 0:
+                            self.checkpoint(Path(checkpoint_dir))
+                        self.barrier()
         if checkpoint_dir is not None:
-            self.write_benchmark_outputs(Path(checkpoint_dir))
+            if self.rank == 0:
+                self.write_benchmark_outputs(Path(checkpoint_dir))
+            self.barrier()
+
+    def _draws_for(self, problem) -> Rooted:
+        return Rooted(self.draws, fold_in(fold_in((), self.iteration),
+                                          problem.ref_image_id))
 
     def run_schedule_pass(self, round_idx: int, pass_idx: int) -> None:
         """One (round, pass) step of the schedule over this runner's
-        problems, in ``scene.problems`` order."""
+        problems, in ``scene.problems`` order.  Exposed so distributed
+        runners can interleave passes with cross-host synchronization.
+
+        With ``config.mesh_views > 1`` the problems run as ONE batch split
+        over the group's ranks (``run_pass_batched``); the serial
+        per-problem loop is the single-device schedule."""
         R = self.rounds
         scale_size = 2 ** (R - 1 - round_idx)
         static, dyn = round_pass_params(
@@ -346,16 +437,21 @@ class SceneRunner:
         t0 = time.time()
         span = f"round{round_idx}/pass{pass_idx}"
         with self.metrics.timed(span), annotate(span):
-            for problem in self.scene.problems:
-                draws = Rooted(self.draws, fold_in(
-                    fold_in((), self.iteration), problem.ref_image_id))
-                self.run_view_pass(problem, static, dyn, scale_size, draws)
-                self.metrics.count("view_passes")
+            if self.config.mesh_views > 1:
+                self.run_pass_batched(self.scene.problems, static, dyn,
+                                      scale_size)
+            else:
+                for problem in self.scene.problems:
+                    self.run_view_pass(problem, static, dyn, scale_size,
+                                       self._draws_for(problem))
+                    self.metrics.count("view_passes")
         self._log(f"round {round_idx} pass {pass_idx} "
                   f"(scale 1/{scale_size}, state={static.state.name}) "
                   f"done in {time.time() - t0:.1f}s")
         if self.config.show_medium_result and self.config.output_folder:
-            self.write_medium_results(Path(self.config.output_folder))
+            if self.rank == 0:
+                self.write_medium_results(Path(self.config.output_folder))
+            self.barrier()
         self.iteration += 1
 
     def write_medium_results(self, out_root: Path) -> None:
@@ -375,6 +471,273 @@ class SceneRunner:
             write_normal_viz(d / f"normals_{self.iteration}.jpg",
                              st.normal_world)
             write_weak_viz(d / f"weak_{self.iteration}.jpg", st.weak)
+
+    # ------------------------------------------------------------------
+    def _scaled_shape(self, image_id: int, scale_size: int) -> tuple:
+        H, W = self.scene.images[image_id].shape
+        return round(H / scale_size), round(W / scale_size)
+
+    def run_pass_batched(self, problems, static: PMStatic, dyn: PMDynamic,
+                         scale_size: int) -> None:
+        """All problems of one pass as a single batch split over the ranks
+        (dist.sharding; JAX's ``run_pass_batched``).
+
+        Problems are padded to a common (H, W, V), exact for the usual
+        uniform-resolution scenes (sources are padded to the ref extent by
+        the reference too, APD.cpp:1071-1082); the batch is padded to a
+        multiple of the rank count by repeating problems (dropped at
+        unbatch).  Rank r runs the contiguous slice ``[r B/n, (r+1) B/n)``;
+        every rank computes the layout, the compaction budget and the
+        iteration from the whole padded list, so each holds the same
+        statics.  After the pass the ranks all-gather their views' packed
+        state, so every rank holds every view's ``ViewState``.
+        """
+        from ..dist.sharding import (all_gather, exchange_src_depths,
+                                     local_slice, make_batched_pass)
+
+        group = self.group
+        n_dev = self.n_ranks
+        B0 = len(problems)
+        reps = -(-B0 // n_dev) * n_dev
+        plist = [problems[i % B0] for i in range(reps)]
+        static = self._weak_budget_for(
+            static, [p.ref_image_id for p in plist])
+        lo, hi = local_slice(group, reps)
+
+        shapes = [self._scaled_shape(p.ref_image_id, scale_size)
+                  for p in plist]
+        H = max(h for h, _ in shapes)
+        W = max(w for _, w in shapes)
+        V = max(len(p.src_image_ids) for p in plist)
+
+        # ---- device-resident fast path (geometric passes of a round) ----
+        # When the previous batched pass of this round left its PassOutput
+        # on the device with the same layout, feed init state and source
+        # depths from it directly: no host rescale/stack/upload, and the
+        # cross-view depth exchange is an all-gather of the ranks' depth
+        # maps.  Gated to uniform-extent batches (padded slots would
+        # re-enter the pass with computed pad values instead of the host
+        # path's zero fill) and to runners whose host state no one else
+        # rewrites between passes (multi-host sync).
+        rid_order = tuple(p.ref_image_id for p in plist)
+        layout = (rid_order, H, W, V, scale_size)
+        rid2idx = {}
+        for j, r in enumerate(rid_order):
+            rid2idx.setdefault(r, j)
+        src_index = np.asarray(
+            [[rid2idx.get(sid, -1)
+              for sid in (list(p.src_image_ids)
+                          + [p.src_image_ids[-1]]
+                          * (V - len(p.src_image_ids)))]
+             for p in plist], np.int32)
+        uniform = all(hw == (H, W) for hw in shapes)
+        use_dev = (self._dev is not None
+                   and self._dev["layout"] == layout
+                   and static.state == RunState.REFINE_ITER
+                   and not self._sync_each_pass
+                   and uniform
+                   and (not static.geom_consistency
+                        or (src_index >= 0).all()))
+        self._last_pass_device_resident = use_dev
+
+        def pad_hw(a, fill=0.0):
+            out = np.full((H, W) + a.shape[2:], fill, a.dtype)
+            out[:a.shape[0], :a.shape[1]] = a
+            return out
+
+        dev = self.device
+        on_dev = lambda a: torch.as_tensor(np.stack(a), device=dev)
+        local = list(range(lo, hi))
+        need_state = static.state != RunState.FIRST_INIT
+        want_edges = static.use_edge or (static.use_APD and static.use_label)
+        need_label = static.use_APD and static.use_label
+
+        # ---- state-independent args (images/cameras/edges): identical for
+        # every pass of a round, so cache them on the device across passes
+        cache = self._dev.get("args") if self._dev is not None else None
+        use_cache = (cache is not None
+                     and self._dev["layout"] == layout
+                     and cache["flags"] == (want_edges, need_label))
+        if use_cache:
+            args_static = cache
+        else:
+            ref_imgs, ref_cams, src_imgs, src_cams = [], [], [], []
+            edges, labels, dyns = [], [], []
+            for i in local:
+                p = plist[i]
+                rimg, rcam = self._scaled_view(p.ref_image_id, scale_size)
+                h, w = rimg.shape
+                ref_imgs.append(pad_hw(rimg))
+                ref_cams.append(rcam.to(dev))
+                srcs = list(p.src_image_ids)
+                pad_ids = srcs + [srcs[-1]] * (V - len(srcs))
+                simgs = []
+                for sid in srcs:
+                    sim, _ = self._scaled_view(sid, scale_size)
+                    canvas = np.zeros((H, W), np.float32)
+                    hh, ww = min(H, sim.shape[0]), min(W, sim.shape[1])
+                    canvas[:hh, :ww] = sim[:hh, :ww]
+                    simgs.append(canvas)
+                simgs += [np.zeros((H, W), np.float32)] * (V - len(srcs))
+                src_imgs.append(np.stack(simgs))
+                src_cams.append(stack_cameras(
+                    [self._scaled_view(sid, scale_size)[1]
+                     for sid in pad_ids]).to(dev))
+                dyns.append(dyn.replace(
+                    depth_min=float(np.float32(float(rcam.depth_min) * 0.6)),
+                    depth_max=float(np.float32(float(rcam.depth_max) * 1.2))))
+                if want_edges:
+                    eg, lb = self._edges_for(p.ref_image_id, scale_size,
+                                             need_label=need_label)
+                    if eg is not None:
+                        edges.append(pad_hw(rescale_nearest(eg, (h, w)) > 0))
+                    if lb is not None:
+                        labels.append(pad_hw(
+                            rescale_nearest(lb, (h, w)).astype(np.int32)))
+            args_static = {
+                "flags": (want_edges, need_label),
+                "ref_imgs": on_dev(ref_imgs),
+                "src_imgs": on_dev(src_imgs),
+                "ref_cams": ref_cams,
+                "src_cams": src_cams,
+                "dyns": dyns,
+                "edge": on_dev(edges) if edges else None,
+                "label": on_dev(labels) if labels else None,
+            }
+
+        draws = [self._draws_for(plist[i]) for i in local]
+
+        # ---- state-dependent inputs: device tensors from the previous
+        # pass, or host rebuild (round start / fallback) ----
+        kw = {}
+        if use_dev:
+            prev = self._dev["out"]
+            kw["init_plane_world"] = torch.cat(
+                [prev.normal_world, prev.depth[..., None]], -1)
+            kw["init_sel"] = self._dev["sel_clean"]
+            kw["init_weak"] = prev.weak
+            if static.use_radius:
+                kw["radius_map"] = prev.radius
+            if static.geom_consistency:
+                # the reference's cross-view sync point (APD.cpp:1147-1166)
+                # as an all-gather of the ranks' depth maps
+                kw["src_depths"] = exchange_src_depths(
+                    prev.depth, src_index[lo:hi], group)
+        else:
+            # the mono planes seed FIRST_INIT only when every problem of
+            # the batch has one (JAX's rule, decided over the whole list so
+            # every rank decides alike)
+            with_mono = (not need_state and all(
+                p.ref_image_id in self.mono_planes for p in plist))
+            init_pw, init_sel, init_weak = [], [], []
+            radius, src_depths = [], []
+            for i in local:
+                p = plist[i]
+                h, w = shapes[i]
+                srcs = list(p.src_image_ids)
+                pad_ids = srcs + [srcs[-1]] * (V - len(srcs))
+                st = self.state.get(p.ref_image_id)
+                if need_state:
+                    assert st is not None, \
+                        f"view {p.ref_image_id}: no previous state"
+                    d = rescale_nearest(st.depth, (h, w))
+                    nrm = rescale_nearest(st.normal_world, (h, w))
+                    init_pw.append(pad_hw(
+                        np.concatenate([nrm, d[..., None]], -1)))
+                    sel = rescale_nearest(st.sel_views.astype(np.uint8),
+                                          (h, w))
+                    sel = np.pad(sel, ((0, 0), (0, 0),
+                                       (0, V - sel.shape[-1])))
+                    init_sel.append(pad_hw(sel.astype(bool)))
+                    init_weak.append(pad_hw(
+                        rescale_nearest(st.weak, (h, w)),
+                        fill=PixelState.UNKNOWN))
+                    if static.use_radius:
+                        radius.append(pad_hw(
+                            rescale_nearest(st.radius, (h, w))))
+                elif with_mono:
+                    mp = self.mono_planes[p.ref_image_id]
+                    if mp.shape[:2] != (h, w):
+                        mp = np.stack([rescale_nearest(mp[..., c], (h, w))
+                                       for c in range(4)], -1)
+                    init_pw.append(pad_hw(mp))
+                if static.geom_consistency:
+                    sds = []
+                    for sid in pad_ids:
+                        sd = self.state.get(sid)
+                        dd = (rescale_nearest(sd.depth, (h, w))
+                              if sd is not None
+                              else np.zeros((h, w), np.float32))
+                        sds.append(pad_hw(dd))
+                    src_depths.append(np.stack(sds))
+            if init_pw:
+                kw["init_plane_world"] = on_dev(init_pw)
+            if init_sel:
+                kw["init_sel"] = on_dev(init_sel)
+                kw["init_weak"] = on_dev(init_weak)
+            if radius:
+                kw["radius_map"] = on_dev(radius)
+            if src_depths:
+                kw["src_depths"] = on_dev(src_depths)
+
+        if args_static["edge"] is not None:
+            kw["edge"] = args_static["edge"]
+        if args_static["label"] is not None:
+            kw["label"] = args_static["label"]
+        out = make_batched_pass(static, dev)(
+            args_static["ref_imgs"], args_static["src_imgs"],
+            args_static["ref_cams"], args_static["src_cams"],
+            args_static["dyns"], draws, **kw)
+
+        if out.weak_overflow is not None:
+            mx = int(all_gather(out.weak_overflow.reshape(-1).to(
+                torch.int32), group).max())
+            if mx > 0:
+                self.metrics.count("weak_budget_overflow_px", mx)
+                self._log(f"weak-compaction budget overflow: worst view "
+                          f"{mx} px fell back to center-window cost")
+
+        # ---- unbatch: per-src visibility CC cleanup stays host-side (the
+        # reference's is too, main.cpp:287-363), each rank cleaning the
+        # first copy of each of its views; then the ranks all-gather the
+        # packed states, so every rank installs the same bytes
+        first = {}
+        for i, p in enumerate(plist):
+            first.setdefault(p.ref_image_id, i)
+        host = lambda t: t.cpu().numpy()
+        pack = np.zeros((hi - lo, PACK_CHANNELS, H, W), np.float32)
+        for j, i in enumerate(local):
+            p = plist[i]
+            if first[p.ref_image_id] != i:
+                continue
+            h, w = shapes[i]
+            sel = host(out.sel_views[j][:h, :w, :len(p.src_image_ids)])
+            pack[j, :, :h, :w] = pack_view(ViewState(
+                depth=host(out.depth[j][:h, :w]),
+                normal_world=host(out.normal_world[j][:h, :w]),
+                weak=host(out.weak[j][:h, :w]),
+                sel_views=visibility_cleanup(sel, scale_size),
+                radius=host(out.radius[j][:h, :w])))
+        packs = all_gather(torch.from_numpy(pack), group).numpy()
+        for i, p in enumerate(plist):
+            if first[p.ref_image_id] != i:
+                continue
+            h, w = shapes[i]
+            self.state[p.ref_image_id] = unpack_view(
+                packs[i, :, :h, :w], len(p.src_image_ids))
+            self.metrics.count("view_passes")
+
+        # the cleaned masks of this rank's slots, re-uploaded once as the
+        # next pass's init_sel, so depth/normal state itself never
+        # round-trips through the host inside a round
+        sel_batch = np.zeros((hi - lo, H, W, V), bool)
+        for j, i in enumerate(local):
+            h, w = shapes[i]
+            sel = self.state[plist[i].ref_image_id].sel_views
+            sel_batch[j, :h, :w, :sel.shape[-1]] = sel
+        self._dev = {"layout": layout, "out": out,
+                     "sel_clean": torch.as_tensor(sel_batch, device=dev),
+                     "args": args_static}
 
     # ------------------------------------------------------------------
     def write_benchmark_outputs(self, out_root: Path, view_ids=None) -> None:
@@ -397,10 +760,16 @@ class SceneRunner:
             write_weak_viz(d / "weak.png", np.asarray(st.weak))
 
     # ------------------------------------------------------------------
-    def checkpoint(self, out_root: Path) -> None:
-        """Persist per-view state in the reference's binary formats."""
+    def checkpoint(self, out_root: Path, view_ids=None) -> None:
+        """Persist per-view state in the reference's binary formats.
+
+        ``view_ids`` restricts the write (multi-host runners write only the
+        views they own, so a host never overwrites another's fresher state).
+        """
         out_root.mkdir(parents=True, exist_ok=True)
-        items = self.state.items()
+        items = (list(self.state.items()) if view_ids is None
+                 else [(r, self.state[r]) for r in view_ids
+                       if r in self.state])
         for rid, st in items:
             d = out_root / format_index(rid)
             d.mkdir(parents=True, exist_ok=True)
@@ -418,7 +787,9 @@ class SceneRunner:
         written = sorted(r for r, _ in items)
         if not written:
             return
-        (out_root / "progress.json").write_text(json.dumps(
+        progress = out_root / ("progress.json" if view_ids is None
+                               else f"progress_{written[0]:08d}.json")
+        progress.write_text(json.dumps(
             {"iteration": self.iteration,
              "rounds": self.rounds,
              "view_ids": written,
@@ -436,6 +807,7 @@ class SceneRunner:
         progress = out_root / "progress.json"
         if not progress.exists():
             return 0
+        self._dev = None          # host state supersedes device-resident
         meta = json.loads(progress.read_text())
         for rid in meta["view_ids"]:
             d = out_root / format_index(rid)

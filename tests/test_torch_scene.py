@@ -327,7 +327,10 @@ def test_cli_scene_runs_on_the_cpu(runs, tmp_path):
 @pytest.mark.parametrize("what", ["mesh_views", "mesh_tiles",
                                   "show_medium_result", "debug_dumps"])
 def test_modes_not_ported_raise(runs, what, tmp_path):
-    """The multi-device passes (ROADMAP.md, Queue 1 item 6) raise.  The
+    """The row-tiled pass (ROADMAP.md, Queue 1 item 7) raises.  The
+    batched schedule (item 6) is ported: with mesh_views=2 and no process
+    group one FIRST_INIT pass runs every view in this process, each view
+    equal to the serial pass's (a FIRST_INIT reads no other view).  The
     medium results and the debug dumps (item 5) are ported: one FIRST_INIT
     pass writes each view's depth, normal and weak jpgs, the bytes JAX's
     ``write_medium_results`` writes from the same state, or each view's
@@ -336,11 +339,28 @@ def test_modes_not_ported_raise(runs, what, tmp_path):
     scene = t_load_scene(folder, max_src_views=2,
                          output_folder=tmp_path / "res")
     cfg, st = _config(t_config), _static(t_config)
-    if what in ("mesh_views", "mesh_tiles"):
-        cfg = dataclasses.replace(cfg, **{what: 2})
+    if what == "mesh_tiles":
+        cfg = dataclasses.replace(cfg, mesh_tiles=2)
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, Queue 1 item 6"):
+                           match="ROADMAP.md, Queue 1 item 7"):
             t_runner.SceneRunner(scene, cfg, st, verbose=False, device="cpu")
+        return
+    if what == "mesh_views":
+        runs_ = [t_runner.SceneRunner(
+            t_load_scene(folder, max_src_views=2),
+            dataclasses.replace(cfg, mesh_views=m), st, verbose=False,
+            device="cpu") for m in (2, 1)]
+        for r in runs_:
+            r.run_schedule_pass(0, 0)
+        assert runs_[0].iteration == 1 and runs_[0].n_ranks == 1
+        assert runs_[0].metrics.summary()["counters"] == {
+            "view_passes": float(NV)}
+        for v in range(NV):
+            for f in ("depth", "normal_world", "weak", "sel_views",
+                      "radius"):
+                np.testing.assert_array_equal(
+                    getattr(runs_[0].state[v], f),
+                    getattr(runs_[1].state[v], f))
         return
     if what == "show_medium_result":
         cfg = dataclasses.replace(cfg, show_medium_result=True,

@@ -125,20 +125,21 @@ def assert_same_partition(got, want):
 
 
 class FastJit:
-    """``jax`` for dvpmvs.sched.runner, with each ``jax.jit`` of a pass
-    compiled on first call with JAX_FAST_COMPILE (the same program, XLA's
-    cheapest optimisation level)."""
+    """``jax`` for dvpmvs.sched.runner (or dvpmvs.dist.sharding), with each
+    ``jax.jit`` of a pass compiled on first call with JAX_FAST_COMPILE (the
+    same program, XLA's cheapest optimisation level)."""
 
     def __getattr__(self, name):
         return getattr(jax, name)
 
     @staticmethod
-    def jit(fn):
+    def jit(fn, **jit_kw):
         compiled = []
 
         def call(*args, **kw):
             if not compiled:
-                compiled.append(compile_jax(fn, *args, **kw))
+                compiled.append(jax.jit(fn, **jit_kw).lower(*args, **kw)
+                                .compile(JAX_FAST_COMPILE))
             return compiled[0](*args, **kw)
         return call
 
