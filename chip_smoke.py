@@ -17,7 +17,12 @@
    its bilinear sample (the port never calls it); after the path phases,
    K4 again at the bench scene's own compaction (the round-0 weak map of
    view 0 that the APD passes start from: ~5,900 weak pixels in 121,600
-   compacted entries), both modes;
+   compacted entries), both modes; the warp backend's NCC kernel
+   (launch_warp_ncc of csrc/warp.cu: K5's warp of each tile and its halo
+   into shared memory and the 36 tap moments there) on one ground-truth
+   plane and on 17 perturbed planes with the radius map's tap weights,
+   against its plain version (K5's plain field and 36 rolled moment sums
+   per plane);
 4. path phase, round 0: runs the main path of pyramid round 0 through the
    port's entry point run_pass with the "fused" backend: FIRST_INIT on
    views 0-4 of a synthetic 608x800 scene (10 replicated source views,
@@ -36,8 +41,11 @@
    planes (acc2 printed, no floor: warp mode converges slowly from random
    planes), then REFINE_ITER from the "fused" FIRST_INIT outputs in round
    0's configuration (radius map, geometric consistency); checks acc2 of
-   REFINE_ITER, that K5 ran once for every plane the backend evaluated in
-   both passes, and that K3's per-view mode ran in the sweeps;
+   REFINE_ITER, that the warp NCC kernel ran once for every batch the
+   backend evaluated in both passes and costed every plane it evaluated
+   (K5 alone never runs there), and that K3's per-view mode ran in the
+   sweeps; prints the fused REFINE_ITER's wall and acc2 of step 4 beside
+   the warp REFINE_ITER's;
 7. path phase, the sparse-patch taps: the APD REFINE_ITER of step 5 with
    anchor_taps=3 on the bench scene (acc2 floor) and on the band scene (its
    region's acc2 beside step 5's); checks that K4's tap mode was launched;
@@ -143,6 +151,13 @@ S_SLOTS, N_ANCHORS = 10, 11
 # 4, floors 2, fractions 2, bilinear blend 11; per pixel: ray 4, s 5
 K5_OPS_PER_VIEW = 46
 K5_OPS_PER_PIXEL = 9
+# the warp backend's NCC per (plane, pixel, view): K5's warp once (its halo
+# recomputation is not counted), 36 taps of 3 moment updates (216), the
+# tail (moments 3, variance and covariance 4, product, clamp, sqrt, clamp,
+# divide, 1 - ncc, clamp 2, tests and select 3: 18); per (plane, pixel):
+# K5's ray and s, and the reference side (1 / sum_w, m_ref, var_ref: 5)
+WARP_NCC_OPS_PER_VIEW = K5_OPS_PER_VIEW + 36 * 6 + 18
+WARP_NCC_OPS_PER_PIXEL = K5_OPS_PER_PIXEL + 5
 # K6 per step (one tap, with its 8 inner steps for the prims) and pixel,
 # counted from each kernel: index arithmetic, clamps, byte unpacking, and for
 # quad8 / p2x5 the f32 blend (integer operations counted at the fp32 rate:
@@ -158,6 +173,7 @@ REPLACES = {
     "geom": "dvpmvs/kernels/geom_pallas.py:208",
     "anchor": "dvpmvs/kernels/anchor_pallas.py:394",
     "warp": "dvpmvs/kernels/sweep_pallas.py:408",
+    "warp_ncc": "dvpmvs/kernels/sweep_pallas.py:408",
     "gather_bench": "scripts/bench_gather_variants.py:204",
 }
 SOURCES = {
@@ -166,12 +182,15 @@ SOURCES = {
     "geom": "dvpmvs_torch/csrc/geom.cu",
     "anchor": "dvpmvs_torch/csrc/anchor.cu",
     "warp": "dvpmvs_torch/csrc/warp.cu",
+    "warp_ncc": "dvpmvs_torch/csrc/warp.cu",
     "gather_bench": "dvpmvs_torch/csrc/gather_bench.cu",
 }
 # which run's launch counts each counter is read from: the round-0 path
-# unless listed (K6 lies on no path: its own timing run)
+# unless listed (K6 lies on no path: its own timing run; K5 alone is read
+# from the warp path, which launches it no time)
 COUNTER_RUN = {"anchor/single tap": "apd", "geom/parity": "apd",
-               "warp": "warp", "anchor/taps": "taps"}
+               "warp/ncc": "warp", "warp/field": "warp",
+               "anchor/taps": "taps"}
 
 
 def card_line() -> str:
@@ -357,6 +376,7 @@ def kernel_phase(torch, dev, scene, reps):
     rows += k4_rows(torch, dev, ref_img, src_imgs, ref_cam, src_cams,
                     gt_plane, rand)
     rows += k5_rows(torch, dev, ctx, gt_plane)
+    rows += warp_ncc_rows(torch, ctx, ctx_r, planes, gt_plane)
     rows += k6_rows(torch, dev)
     return rows
 
@@ -499,7 +519,9 @@ def k4_cell_rows(torch, dev, tag, weak, anchors, plane, sel, ref_img,
 def k5_rows(torch, dev, ctx, gt_plane):
     """K5 on the ground-truth plane field at 608x800, V=10, against its
     plain version, and grid_sample (border, align_corners) on the same
-    coordinates: the bilinear sample that is the bulk of K5's work."""
+    coordinates: the bilinear sample that is the bulk of K5's work.  K5
+    alone lies on no path since the warp backend's NCC kernel took its
+    place there: its launches are the warp path's, 0."""
     import torch.nn.functional as F
     from dvpmvs_torch.kernels import warp_fused
 
@@ -532,8 +554,43 @@ def k5_rows(torch, dev, ctx, gt_plane):
     lib_ms = cuda_ms(torch, lib_run, 20)
     ops = V * H * W * K5_OPS_PER_VIEW + H * W * K5_OPS_PER_PIXEL
     nbytes = 16 * H * W + 4 * V * H * W + 5 * V * H * W
-    return [("warp", "warp", label, err, ms, plain, *bound_ms(ops, nbytes),
-             lib_ms)]
+    return [("warp", "warp/field", label, err, ms, plain,
+             *bound_ms(ops, nbytes), lib_ms)]
+
+
+def warp_ncc_rows(torch, ctx, ctx_r, planes, gt_plane):
+    """The warp backend's NCC kernel (launch_warp_ncc) at 608x800, V=10,
+    r=5, against its plain version: one ground-truth plane with the static
+    radius's tap weights, and 17 perturbed planes (a FIRST_INIT batch) with
+    the radius map's.  No one PyTorch call computes this function."""
+    from dvpmvs_torch.kernels import warp_fused
+
+    rows = []
+    for label, c, pl in (("B=1, ground truth", ctx, gt_plane[None]),
+                         ("B=17, perturbed, radius-map weights", ctx_r,
+                          planes(17))):
+        args = (pl.contiguous(), c.src_imgs, c.M, c.b, c.cam, c.src_wh,
+                c.w_taps, c.wref_taps, c.sum_w, c.sum_wref, c.sum_wref2,
+                c.strong_radius)
+        got = warp_fused.warp_ncc(*args)
+        want = warp_fused.warp_ncc_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"warp_ncc {label}: NaN at other entries "
+                                 "than the plain version's")
+        err = compare(torch, got, want, 1e-3, 1e-3, f"warp_ncc {label}")
+        B = pl.shape[0]
+        print(f"  warp_ncc {label}: cost < 2 at "
+              f"{float((got < 2.0).float().mean()):.4f} of the entries",
+              flush=True)
+        ms = cuda_ms(torch, lambda: warp_fused.warp_ncc(*args), 10)
+        plain = cuda_ms(torch, lambda: warp_fused.warp_ncc_plain(*args), 1)
+        ops = B * H * W * (V * WARP_NCC_OPS_PER_VIEW + WARP_NCC_OPS_PER_PIXEL)
+        nbytes = 4 * (4 * B * H * W + B * H * W * V + 72 * H * W + 3 * H * W
+                      + V * H * W)
+        rows.append(("warp_ncc", "warp/ncc", label, err, ms, plain,
+                     *bound_ms(ops, nbytes), None))
+    return rows
 
 
 def k6_rows(torch, dev):
@@ -846,17 +903,20 @@ def apd_phase(torch, dev, scene, first):
             band_res[it_label][3])
 
 
-def warp_phase(torch, dev, scene, first):
+def warp_phase(torch, dev, scene, first, fused):
     """The "warp" cost backend on view 0: FIRST_INIT from random planes
     (acc2 printed, no floor), then REFINE_ITER from the "fused" FIRST_INIT
     outputs ``first`` in round 0's configuration (the radius map of view
     0's output, geometric consistency against the other views' depths).
-    K5 must run once for every plane the backend evaluates, and K3's
-    per-view mode in the sweeps."""
+    The warp NCC kernel must run once for every batch the backend
+    evaluates and cost every plane it evaluates, K5 alone never, and K3's
+    per-view mode must run in the sweeps.  ``fused``: the path phase's
+    summary, whose REFINE_ITER (radius map) is printed beside the warp
+    REFINE_ITER."""
     from dvpmvs_torch.config import PixelState, PMStatic, round_pass_params
     from dvpmvs_torch.engine import run_pass
     from dvpmvs_torch.geometry import stack_cameras
-    from dvpmvs_torch.kernels import _build, ncc
+    from dvpmvs_torch.kernels import _build, ncc, warp_fused
     from dvpmvs_torch.rng import TorchDraws
 
     base = PMStatic(num_src=V, max_iterations=ITERS, cost_backend="warp")
@@ -882,29 +942,43 @@ def warp_phase(torch, dev, scene, first):
     summary, passes = {}, {}
     for label, fn in runs:
         planes0 = ncc.PLANES_EVALUATED["warp"]
+        batches0 = ncc.BATCHES_EVALUATED["warp"]
+        kernel0 = warp_fused.KERNEL_PLANES["ncc"]
         out, dt, launches = timed(torch, fn)
         planes = ncc.PLANES_EVALUATED["warp"] - planes0
+        batches = ncc.BATCHES_EVALUATED["warp"] - batches0
+        kernel_planes = warp_fused.KERNEL_PLANES["ncc"] - kernel0
         a = acc2(out.depth.cpu().numpy(), scene.gt_depth[0])
         n_weak = int((out.weak == PixelState.WEAK).sum())
+        n_ncc = launches.get("warp/ncc", 0)
         print(f"  {label} view 0: {dt:.3f} s, acc2 {a:.4f}, weak pixels out "
-              f"{n_weak}, K5 launches {launches.get('warp', 0)} for {planes} "
-              f"planes evaluated, launches {launches}", flush=True)
+              f"{n_weak}, warp NCC launches {n_ncc} for {batches} batches "
+              f"and {kernel_planes} of {planes} planes evaluated, launches "
+              f"{launches}", flush=True)
         if not torch.isfinite(out.depth).all() or \
                 tuple(out.depth.shape) != (H, W):
             raise AssertionError(f"{label}: bad depth map")
-        if launches.get("warp", 0) != planes or planes <= 0:
-            raise AssertionError(f"{label}: K5 ran {launches.get('warp', 0)}"
-                                 f" times for {planes} warp planes")
+        if n_ncc != batches or kernel_planes != planes or planes <= 0:
+            raise AssertionError(f"{label}: the warp NCC kernel ran {n_ncc} "
+                                 f"times on {kernel_planes} planes for "
+                                 f"{batches} batches of {planes} planes")
+        if launches.get("warp/field", 0):
+            raise AssertionError(f"{label}: K5 ran alone in the warp pass")
         summary[label] = {"s": dt, "acc2": a, "weak_pixels_out": n_weak,
-                          "planes": planes, "launches": launches}
+                          "planes": planes, "batches": batches,
+                          "launches": launches}
         passes[label] = fn
     label = runs[1][0]
+    print(f"  REFINE_ITER view 0, same call: warp {summary[label]['s']:.3f} "
+          f"s, acc2 {summary[label]['acc2']:.4f}; fused (radius map) "
+          f"{fused['refine_radius_s']:.3f} s, acc2 "
+          f"{fused['refine_radius_acc2']:.4f}", flush=True)
     if summary[label]["acc2"] < ACC2_FLOOR:
         raise AssertionError(f"{label} acc2 {summary[label]['acc2']:.4f} < "
                              f"{ACC2_FLOOR}")
     require_launched(summary[label]["launches"], ("geom/per view",), label)
     totals = counts()
-    require_launched(totals, ("warp",), "the warp path")
+    require_launched(totals, ("warp/ncc",), "the warp path")
     return totals, summary, passes
 
 
@@ -1160,7 +1234,7 @@ def profile_phase(torch, passes):
     wall time, and the device time by kernel."""
     ours = {"ncc_fused_kernel": "ncc_fused", "sweep_kernel": "sweep",
             "geom_kernel": "geom", "anchor_kernel": "anchor",
-            "warp_kernel": "warp"}
+            "warp_kernel": "warp", "warp_ncc_kernel": "warp_ncc"}
     result = {}
     for label, fn in passes.items():
         spans, by_name, busy, wall = device_profile(torch, fn)
@@ -1805,8 +1879,8 @@ def main() -> int:
      band_before, band_apd) = apd_phase(torch, dev, scene, first)
     passes.update(apd_passes)
     print("path phase, the warp cost backend (608x800, V=10):", flush=True)
-    runs["warp"], summary["warp"], warp_passes = warp_phase(torch, dev,
-                                                            scene, first)
+    runs["warp"], summary["warp"], warp_passes = warp_phase(
+        torch, dev, scene, first, summary)
     passes.update(warp_passes)
     print("path phase, sparse-patch taps (anchor_taps=3, fused backend):",
           flush=True)

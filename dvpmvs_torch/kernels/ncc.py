@@ -14,11 +14,11 @@ static strong radius or the per-pixel adaptive radius.
 Backends: ``"exact"`` evaluates each plane here in plain PyTorch (taps and
 views are tensor dimensions); ``"fused"`` sends every batch to the NCC
 kernel (``ncc_fused.py``), which evaluates the same function; ``"warp"``
-warps the sources once per plane (``warp_field``, the warp-field kernel of
-``warp_fused.py``) and reads the warped field at the 36 taps' static
-integer shifts: the tap at p + d then sees the homography of the plane at
-p + d, not at p, which agrees with the exact window where the plane field
-is locally constant.
+warps the sources once per plane and reads the warped field at the 36
+taps' static integer shifts, all B planes in one launch of the kernel of
+``warp_fused.warp_ncc``: the tap at p + d then sees the homography of the
+plane at p + d, not at p, which agrees with the exact window where the
+plane field is locally constant.
 """
 
 from __future__ import annotations
@@ -379,29 +379,9 @@ def warp_field(ctx: CostContext, plane: torch.Tensor
     return k5(plane, ctx.src_imgs, ctx.M, ctx.b, ctx.cam, ctx.src_wh)
 
 
-def _ncc_cost_warp(ctx: CostContext, plane: torch.Tensor) -> torch.Tensor:
-    """Warp-once NCC: the 36 taps read the warped field at static integer
-    shifts of the static radius (wrapping, unmasked, as JAX's), weighted by
-    the context's tap weights (built with the radius map where there is
-    one).  plane [H, W, 4] -> cost [H, W, V]."""
-    warped, in_view = warp_field(ctx, plane)
-    taps = tap_grid()
-    r = ctx.strong_radius
-    s1 = s2 = s3 = 0.0
-    for t in range(taps.shape[0]):
-        dxi = int(round(float(taps[t, 0]) * r))
-        dyi = int(round(float(taps[t, 1]) * r))
-        src_t = shift2(warped, dxi, dyi)                   # [V, H, W]
-        wv = ctx.w_taps[t] * src_t
-        s1 = s1 + wv
-        s2 = s2 + wv * src_t
-        s3 = s3 + ctx.wref_taps[t] * src_t
-    return _ncc_from_moments(1.0 / ctx.sum_w, ctx.sum_wref, ctx.sum_wref2,
-                             s1, s2, s3, in_view)
-
-
-# planes evaluated by ncc_cost_batch, by backend, since the last reset
+# planes and calls (batches) evaluated by ncc_cost_batch, by backend
 PLANES_EVALUATED = {b: 0 for b in ("exact", "fused", "warp")}
+BATCHES_EVALUATED = {b: 0 for b in ("exact", "fused", "warp")}
 
 
 def ncc_cost(ctx: CostContext, plane: torch.Tensor,
@@ -416,14 +396,20 @@ def ncc_cost_batch(ctx: CostContext, planes: torch.Tensor,
                    parity: Optional[int] = None) -> torch.Tensor:
     """planes [B, H', W', 4] -> costs [B, H', W', V].
 
-    The fused backend evaluates all B planes in one kernel launch; the exact
-    and warp backends one plane at a time on the full grid."""
+    The fused and warp backends evaluate all B planes in one kernel launch
+    (the warp backend on the full grid only); the exact backend one plane at
+    a time on the full grid."""
     PLANES_EVALUATED[ctx.backend] += planes.shape[0]
+    BATCHES_EVALUATED[ctx.backend] += 1
     if ctx.backend == "fused":
         from .ncc_fused import fused_cost_from_ctx
         return fused_cost_from_ctx(ctx, planes, parity=parity)
     if parity is not None:
         raise ValueError(f"the {ctx.backend} backend evaluates the full "
                          "grid only")
-    one = _ncc_cost_warp if ctx.backend == "warp" else _ncc_cost_exact
-    return torch.stack([one(ctx, p) for p in planes])
+    if ctx.backend == "warp":
+        from .warp_fused import warp_ncc
+        return warp_ncc(planes, ctx.src_imgs, ctx.M, ctx.b, ctx.cam,
+                        ctx.src_wh, ctx.w_taps, ctx.wref_taps, ctx.sum_w,
+                        ctx.sum_wref, ctx.sum_wref2, ctx.strong_radius)
+    return torch.stack([_ncc_cost_exact(ctx, p) for p in planes])

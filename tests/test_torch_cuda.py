@@ -14,6 +14,8 @@ agree bitwise at these shapes.  The measure is chip_smoke.py's: median
 |d| <= 1e-3 (K2: 5e-3) and a share <= 1e-3 of the entries above it.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -311,6 +313,101 @@ def test_warp_kernel_matches_plain(card):
         _agree(got_w, want_w)
 
 
+@pytest.fixture(scope="module")
+def ragged7():
+    """A 37 x 101 scene with 7 source views: no 16 x 32 tile of the warp
+    backend's NCC fits it evenly, and its views take one whole and one
+    partial chunk of 5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    Hr, Wr, V7 = 37, 101, 7
+    scene = make_scene(num_views=V7 + 1, height=Hr, width=Wr, seed=5)
+    ref = scene.cameras[0].to(dev)
+    src = stack_cameras(scene.cameras[1:]).to(dev)
+    img = torch.as_tensor(scene.images, device=dev)
+    xs, ys = _grid(Hr, Wr, dev)
+    plane = plane_from_normal_depth(
+        torch.as_tensor(scene.gt_normal[0], device=dev),
+        torch.as_tensor(scene.gt_depth[0], device=dev), xs, ys, ref)
+    rmap = torch.as_tensor(np.random.default_rng(1).uniform(
+        3.0, 7.0, (Hr, Wr)).astype(np.float32), device=dev)
+    return dict(dev=dev, ref=ref, src=src, img=img, plane=plane, rmap=rmap)
+
+
+@pytest.mark.parametrize("r", [1, 5, 9])
+@pytest.mark.parametrize("B", [1, 8, 17])
+def test_warp_ncc_kernel_matches_plain(ragged7, B, r):
+    """The warp backend's NCC kernel at 37 x 101, V = 7, on B planes: the
+    ground truth, then (B > 1) w = 0 at some pixels (NaN coordinates, whose
+    NaN reaches every in-view window that reads them), a plane just behind
+    the reference camera and a far plane (cost 2 wherever out of view) and
+    perturbed copies; tap weights with a radius map at B = 8.  One launch
+    for the batch, NaN where the plain version has NaN, and chip_smoke's
+    measure (the two agree bitwise)."""
+    c = ragged7
+    dev = c["dev"]
+    ctx = build_cost_context(c["img"][0], c["img"][1:], c["ref"], c["src"],
+                             5.0, 3.0, strong_radius=r, backend="warp",
+                             radius_map=c["rmap"] if B == 8 else None)
+    gen = torch.Generator(device=dev).manual_seed(B + r)
+    planes = c["plane"][None].repeat(B, 1, 1, 1)
+    planes[..., 3] *= 1.0 + 0.1 * (torch.rand(
+        planes.shape[:3], generator=gen, device=dev) - 0.5)
+    if B > 1:
+        planes[0] = c["plane"]
+        planes[1, 5:9, 20:60, 3] = 0.0
+        planes[2] = c["plane"] * torch.tensor([1.0, 1.0, 1.0, -1e-3],
+                                              device=dev)
+        planes[3] = c["plane"] * torch.tensor([1.0, 1.0, 1.0, 40.0],
+                                              device=dev)
+    args = (planes.contiguous(), ctx.src_imgs, ctx.M, ctx.b, ctx.cam,
+            ctx.src_wh, ctx.w_taps, ctx.wref_taps, ctx.sum_w, ctx.sum_wref,
+            ctx.sum_wref2, r)
+    before = _build.MODE_LAUNCHES.get("warp/ncc", 0)
+    planes_before = warp_fused.KERNEL_PLANES["ncc"]
+    got = warp_fused.warp_ncc(*args)
+    assert _build.MODE_LAUNCHES["warp/ncc"] == before + 1
+    assert warp_fused.KERNEL_PLANES["ncc"] == planes_before + B
+    want = warp_fused.warp_ncc_plain(*args)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, 37, 101, 7)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    _agree(got, want)
+    assert float((want[0] < 2.0).float().mean()) > 0.3
+    if B > 1:
+        assert bool(torch.isnan(want[1]).any())
+        for k in (2, 3):
+            _, _, iv = warp_fused.warp_coords(planes[k], ctx.M, ctx.b,
+                                              ctx.cam, ctx.src_wh)
+            out = torch.movedim(~iv, 0, -1)
+            assert bool(out.any()) and bool((got[k][out] == 2.0).all())
+
+
+def test_warp_ncc_refuses_a_halo_beyond_shared_memory(ragged7):
+    """At V = 7 a radius of 60 needs a halo whose block would exceed 227 KB
+    of shared memory: the wrapper raises before launching, and never falls
+    back to the plain version; radius 9 fits."""
+    c = ragged7
+    ctx = build_cost_context(c["img"][0], c["img"][1:], c["ref"], c["src"],
+                             5.0, 3.0, strong_radius=60, backend="warp")
+    args = (c["plane"][None].contiguous(), ctx.src_imgs, ctx.M, ctx.b,
+            ctx.cam, ctx.src_wh, ctx.w_taps, ctx.wref_taps, ctx.sum_w,
+            ctx.sum_wref, ctx.sum_wref2)
+    lib = _build.library("warp")
+    lib.warp_ncc_smem_bytes.restype = ctypes.c_int
+    assert lib.warp_ncc_smem_bytes(7, 60) < 0
+    assert 0 < lib.warp_ncc_smem_bytes(7, 9) <= 232448
+    before = _build.MODE_LAUNCHES.get("warp/ncc", 0)
+    planes_before = warp_fused.KERNEL_PLANES["ncc"]
+    with pytest.raises(ValueError, match="shared memory"):
+        warp_fused.warp_ncc(*args, 60)
+    assert _build.MODE_LAUNCHES.get("warp/ncc", 0) == before
+    assert warp_fused.KERNEL_PLANES["ncc"] == planes_before
+    warp_fused.warp_ncc(*args, 9)
+    assert _build.MODE_LAUNCHES["warp/ncc"] == before + 1
+
+
 @pytest.mark.parametrize("variant", gather_variants.VARIANTS)
 def test_gather_bench_kernel_matches_plain(card, variant):
     """K6 on a 16 x 256 grid: int variants equal, f32 variants within
@@ -358,8 +455,9 @@ def test_apd_pass_with_a_label_map_on_the_card(card):
 
 
 def test_warp_and_tap_passes_on_the_card(card):
-    """REFINE_ITER with the warp backend (K5 at every plane it evaluates,
-    K3 per view in its sweeps), without and with use_APD (K4 on the full
+    """REFINE_ITER with the warp backend (its NCC kernel once for every
+    batch it evaluates, with every plane, and K5 alone never; K3 per view
+    in its sweeps), without and with use_APD (K4 on the full
     grid), and with use_APD and anchor_taps=3 (K4's tap mode): finite
     depths."""
     from dvpmvs_torch.config import PixelState, PMDynamic, PMStatic, RunState
@@ -390,13 +488,18 @@ def test_warp_and_tap_passes_on_the_card(card):
                         geom_consistency=True, anchor_taps=3, **apd)):
         _build.reset_launches()
         planes = dict(ncc.PLANES_EVALUATED)
+        batches = dict(ncc.BATCHES_EVALUATED)
+        kernel_planes = warp_fused.KERNEL_PLANES["ncc"]
         out = run_pass(scene.images[0], scene.images[1:], c["ref"],
                        c["src"], st, dyn, TorchDraws(0), **init)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(out.depth).all())
         if st.cost_backend == "warp":
-            assert _build.LAUNCHES["warp"] == (
-                ncc.PLANES_EVALUATED["warp"] - planes["warp"]) > 0
+            assert _build.MODE_LAUNCHES["warp/ncc"] == (
+                ncc.BATCHES_EVALUATED["warp"] - batches["warp"]) > 0
+            assert warp_fused.KERNEL_PLANES["ncc"] - kernel_planes == (
+                ncc.PLANES_EVALUATED["warp"] - planes["warp"])
+            assert _build.MODE_LAUNCHES.get("warp/field", 0) == 0
             assert _build.MODE_LAUNCHES["geom/per view"] > 0
         if st.use_APD:
             mode = "taps" if st.anchor_taps > 1 else "single tap"
