@@ -12,7 +12,8 @@
    compacted weak pixels of one color of a 30 % weak mask, K_w = 121,600,
    in its single-tap mode and in its tap mode with two sparse-patch taps;
    K5 on the ground-truth plane field; the seven K6 gather kernels at their
-   own shapes), and times both with CUDA events; K5's row also times
+   own shapes, each beside its floor of the work as written and an empty
+   launch), and times both with CUDA events; K5's row also times
    torch.nn.functional.grid_sample on the same coordinates, which computes
    its bilinear sample (the port never calls it); after the path phases,
    K4 again at the bench scene's own compaction (the round-0 weak map of
@@ -595,29 +596,35 @@ def warp_ncc_rows(torch, ctx, ctx_r, planes, gt_plane):
 
 def k6_rows(torch, dev):
     """The seven K6 gather kernels at the JAX script's shapes (304x512
-    pixels, 17 x 36 steps) against their plain versions; their launches
-    are those of their own timing run."""
+    pixels, 17 x 36 steps) against their plain versions, bit for bit; their
+    launches are those of their own timing run.  Prints an empty launch's
+    time at K6's grid (the launch floor) and beside each kernel its floor of
+    the work as written, the pipe or wavefronts that set it and the SM
+    clock sampled under its load (``gather_variants.floors``)."""
     from dvpmvs_torch.bench import gather_variants as gv
     from dvpmvs_torch.kernels import _build
 
     ins = gv.make_inputs(device=dev)
     Hd, Wd = ins[1].shape
-    rows = []
+    print(f"  gather_bench: {gv.empty_launch(Hd * Wd // gv.WARP)}: the "
+          "launch floor", flush=True)
+    rows, times = [], {}
     for variant in gv.VARIANTS:
         run = lambda: gv.run(variant, *ins)
         got = run()
         want = gv.run_plain(variant, *ins)
         torch.cuda.synchronize()
-        rel = torch.abs(got - want) / torch.clamp(torch.abs(want), min=1e-30)
         err = float(torch.abs(got - want).max())
-        print(f"  gather_bench {variant}: max|d|={err:.3e} max rel "
-              f"{float(rel.max()):.3e} (allowed 1e-6)", flush=True)
-        if float(rel.max()) > 1e-6:
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        print(f"  gather_bench {variant}: max|d|={err:.3e}, bit for bit "
+              f"{same} (required)", flush=True)
+        if not same:
             raise AssertionError(f"gather_bench {variant}: kernel disagrees "
                                  "with its plain version")
         _build.reset_launches()
         ms = cuda_ms(torch, run, 20)
         launches = _build.MODE_LAUNCHES[f"gather_bench/{variant}"]
+        times[variant] = ms
         plain = cuda_ms(torch, lambda: gv.run_plain(variant, *ins), 1)
         # steps the function needs per pixel: the f32 sums run all 17 x 36
         # in order; a wrapping int32 sum's 17 passes fold into one (times
@@ -629,10 +636,12 @@ def k6_rows(torch, dev):
         rows.append(("gather_bench", f"gather_bench/{variant}",
                      f"{variant}, {Hd}x{Wd}", err, ms, plain,
                      *bound_ms(ops, nbytes), None, launches))
-    t = {r[2].split(",")[0]: r[4] for r in rows}
-    print(f"  gather_bench: quad8 {t['quad8']:.4f} ms vs p2x5 "
-          f"{t['p2x5']:.4f} ms ({t['quad8'] / max(t['p2x5'], 1e-9):.2f}x)",
-          flush=True)
+    for variant, f in gv.floors(ins, times).items():
+        print("  gather_bench " + gv.report(variant, times[variant], f),
+              flush=True)
+    print(f"  gather_bench: quad8 {times['quad8']:.4f} ms vs p2x5 "
+          f"{times['p2x5']:.4f} ms "
+          f"({times['quad8'] / max(times['p2x5'], 1e-9):.2f}x)", flush=True)
     return rows
 
 

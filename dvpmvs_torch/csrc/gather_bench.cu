@@ -6,9 +6,9 @@
 // computes, for every output pixel (y, x) of a [Hd, Wd] grid tiled in 8 x 128
 // tiles (sublane s = y % 8, lane l = x % 128), a loop of PV = 17 x TAPS = 36
 // steps over the source words quads [64, 256] int32, offset per step by
-// taps [36, 2] int32 and per pixel by dj and loc [Hd, Wd] int32.  The TPU
-// kernels reach their word through chains of roll / select / lane gather;
-// the index each chain finally reads is derived here as plain index
+// taps [36, 2] int32 (in [0, 4)) and per pixel by dj and loc [Hd, Wd] int32.
+// The TPU kernels reach their word through chains of roll / select / lane
+// gather; the index each chain finally reads is derived here as plain index
 // arithmetic (pltpu.roll is jnp.roll, pltpu.repeat is jnp.tile, an
 // out-of-range lane gather reads INT32_MIN, as interpret mode gives them):
 //
@@ -30,22 +30,55 @@
 //           repeat += blk[s, l]
 //           vshift += blk[s, l] >>> 8 ((loc + j) & 3)
 //
-// What bounds it on the H100: operations (integer ones for the prim
-// kernels): ~25-50 per step, 612 steps per pixel, against 4 B read and 4 B
-// written per pixel (plus 64 KB of quads).  At 304 x 512 that is ~2-5 G
-// operations (0.03-0.07 ms at 67 TFLOP/s, counted as fp32) against 1.9 MB
-// (0.0006 ms).
+// The 17 passes are not folded: the benchmark times the gather machinery
+// of 612 steps a pixel, as the TPU kernel's fori_loops run it.  Every pass
+// adds pass x `zero` (a kernel argument, always 0) to the per-pixel inputs,
+// so neither nvcc nor ptxas can hoist a step's chain or load out of the
+// pass loop (an empty asm stops nvcc, not ptxas); no two pixels share a
+// chain, and prim_select runs all its selects.
 //
-// What the design does about it: one thread per output pixel; the 64 KB of
-// quads (the TPU kernel's VMEM block) are staged in shared memory once per
-// block, so every step's gather is one shared-memory load.  The taps (the
-// TPU kernel's SMEM scalars) travel by value in the kernel's parameters and
-// are copied to shared memory beside the quads.  Above 48 KB of dynamic
-// shared memory the launch opts in with cudaFuncSetAttribute.
+// What bounds it on the H100: the per-step chain, not memory (4 B read and
+// 4 B written a pixel, 612 steps).  A warp of 32 pixels of one row runs
+// 612 warp steps: 2,976,768 at 304 x 512, ~22,551 an SM.  By the SASS
+// (gather_variants.floors, which gives each variant's floor from its
+// SASS and its inputs' addresses): quad8 and p2x5 are bound by issue (~29
+// and ~36 instructions a step, four a clock an SM); vshift by the integer
+// pipe (64 lanes a clock an SM: clamp, shifts, adds); roll, select and
+// repeat by shared memory (one wavefront a clock: 7, 8 and 1 conflict-free
+// loads a step); gather by its bank conflicts (random columns: ~2.3
+// wavefronts a load, 8 loads a step).
 //
-// Rounding: built with nvcc -fmad=false, the f32 sums of quad8 and p2x5 run
+// What the design does about it:
+// - A persistent, balanced grid of 320-thread blocks: blocks = SMs x the
+//   blocks an SM that fit (occupancy API, at most 48 registers for 4), or
+//   fewer where the warp units fill fewer; every block is resident at
+//   once.  Warp units of 32 pixels are dealt round-robin over the blocks
+//   (unit u to block u mod B), so every SM holds the same number of units
+//   within one and no block waits for a second wave.  A unit's row is
+//   u / (Wd / 32) by a multiply (no integer divide, whose I2F / F2I would
+//   use the conversion pipe).  Each block stages its rows once.
+// - Each variant stages only the rows it reads, with 16-byte loads: quad8
+//   rows 0-47 (48 KB: 8 T0 + 8 (u + hi) + 7 <= 47 for T0 < 4, u + hi <= 2),
+//   p2x5 rows 0-31 (32 KB), the prims rows 0-31 of columns 0-127 (16 KB,
+//   plus 8 words that prim_gather's discarded reads past lane 127 may
+//   touch).  No variant needs more than 48 KB, so none opts in.  Staged
+//   words are addressed in bytes, so a load is [register + uniform
+//   register].
+// - The per-tap scalars (the TPU kernel's SMEM scalars) come from a table
+//   built on the host (gather_variants.tap_table) and passed in the kernel's
+//   parameter block: T0, T1, the block's byte offset 4 x 8 T0 x stride, and
+//   for quad8 up and 8 - up mod 8, for p2x5 2 (1 - T1 mod 3) and, for each
+//   dj, the low byte of its PRMT selector (bytes 0x50 + (dj & 1), or 0x54
+//   where j falls outside 0..3).  The tap loop is unrolled, so every entry
+//   is a constant-bank operand: no thread computes a modulo or loads a tap.
+// - Bytes to f32 without the conversion pipe (16 lanes a clock): PRMT puts
+//   byte i of g into the low byte of 0x4B000000 (2^23 + b exactly), and one
+//   fma(f, c, -2^23 c) gives b c rounded once, the bits of the plain
+//   version's product (f c - 2^23 c = b c exactly; -2^23 c is exact).
+//
+// Rounding: built with nvcc -fmad=false; the f32 sums of quad8 and p2x5 run
 // in the order of the plain PyTorch version (bench/gather_variants.py) and
-// of the JAX kernels.  The C entry returns cudaGetLastError().
+// of the JAX kernels.  The C entries return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,156 +87,285 @@ namespace {
 
 constexpr int kPV = 17;
 constexpr int kTaps = 36;
-constexpr int kQuadRows = 64;
+constexpr int kFields = 6;       // columns of gather_variants.tap_table
 constexpr int kQuadCols = 256;
-constexpr int kQuadWords = kQuadRows * kQuadCols;
-constexpr int kThreads = 512;
-constexpr size_t kSmem = (kQuadWords + 2 * kTaps) * sizeof(int32_t);
+constexpr int kThreads = 320;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 4;    // 40 warps an SM (~37 units), 48 registers
+constexpr int kGatherPad = 8;    // words past the prims' block
 
 enum Variant { QUAD8 = 0, P2X5, ROLL, GATHER, SELECT, REPEAT, VSHIFT };
+// BASE: the byte offset of the tap's 8-row block; A, B, C: per variant
+enum Field { T0 = 0, T1, BASE, A, B, C };
 
-struct Taps {
-  int32_t v[2 * kTaps];
+struct TapTable {
+  int32_t v[kTaps][kFields];
 };
 
-__device__ __forceinline__ int mod_floor(int a, int m) {
-  const int r = a % m;
-  return r < 0 ? r + m : r;
-}
+// rows and columns of quads each variant stages (its stride is kCols)
+template <int V> struct Staged {
+  static constexpr int kRows = V == QUAD8 ? 48 : 32;
+  static constexpr int kCols = V <= P2X5 ? kQuadCols : 128;
+  static constexpr int kPad = V <= P2X5 ? 0 : kGatherPad;
+  static constexpr size_t kBytes = (kRows * kCols + kPad) * sizeof(int32_t);
+};
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
+  return min(max(x, lo), hi);
 }
 
-__device__ __forceinline__ float byte_f(uint32_t g, int i) {
-  return (float)((g >> (8 * i)) & 0xFFu);
+// PRMT selectors: byte i of g, or (kZeroByte) a zero byte, under 0x4B
+constexpr int kByte0 = 0x7650;
+constexpr int kZeroByte = 0x7654;
+
+// PRMT: byte i of d is byte (sel >> 4 i) & 7 of b:a (every selector here
+// has the nibbles' top bits clear; __byte_perm would mask them each time)
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, int sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
 }
 
-template <int VARIANT>
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(const Taps taps_p,                    // [36, 2]
+// the byte of g that `sel` selects, times c, rounded once: the PRMT gives
+// the f32 2^23 + b exactly
+__device__ __forceinline__ float byte_times(uint32_t g, int sel, float c) {
+  const float f = __uint_as_float(prmt(g, 0x4B000000u, sel));
+  return __fmaf_rn(f, c, -8388608.0f * c);
+}
+
+// the word `bytes` past p (staged quads are addressed in bytes)
+__device__ __forceinline__ uint32_t word_at(const char* p, int bytes) {
+  return *reinterpret_cast<const uint32_t*>(p + bytes);
+}
+
+template <int V>
+__device__ __forceinline__ float float_pixel(const TapTable& tab,
+                                             const char* q, int zero,
+                                             int s0, int dj00, int loc00) {
+  // taps lie in [0, 4): the limits change no clamp and keep the sums in int
+  dj00 = clampi(dj00, -8, 8);
+  loc00 = clampi(loc00, -4, 256);
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int pv = 0, off = 0; pv < kPV; ++pv, off += zero) {
+    const int s = s0 + off, dj0 = dj00 + off, loc0 = loc00 + off;
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+      const int32_t* tp = tab.v[t];
+      int dj = clampi(dj0 + tp[T0], 0, 7);
+      const int loc = clampi(loc0 + tp[T1], 0, 255);
+      // dj as a value of its own: nvcc would rebuild dj & ~1 from the clamp
+      asm("" : "+r"(dj));
+      float val;
+      if (V == QUAD8) {
+        const int n = s + dj;
+        const int r = n & 7;
+        const int hi = r >= tp[B] ? 1 : 0;           // B = 8 - up mod 8
+        const int row = 8 * ((n >> 3) + hi) + ((r - tp[A]) & 7);  // A = up
+        const uint32_t g = word_at(q + tp[BASE], (row << 10) + (loc << 2));
+        val = byte_times(g, kByte0, 0.3f) + byte_times(g, kByte0 + 1, 0.2f);
+        val = val + byte_times(g, kByte0 + 2, 0.25f);
+        val = val + byte_times(g, kByte0 + 3, 0.25f);
+      } else {
+        // (s + 2 j) mod 8, j = dj / 2 - m0 + 1: A = 2 (1 - m0)
+        const int row = (s + (dj & ~1) + tp[A]) & 7;
+        const char* w = q + tp[BASE] + (row << 10);
+        const uint32_t ga = word_at(w, loc << 2);
+        const uint32_t gb = word_at(w, min(loc + 1, 255) << 2);
+        // bytes 0, 1 of g >> 8 (dj & 1) are bytes (dj & 1) + 0, 1 of g; a
+        // word outside 0 <= j <= 3 counts as 0: its selectors pick 0 bytes.
+        // B, C hold the selector's low byte for dj = 0..7 (one PRMT)
+        const int sel = 0x7600 | (prmt(tp[B], tp[C], dj) & 0xFF);
+        val = byte_times(ga, sel, 0.3f) + byte_times(gb, sel, 0.2f);
+        val = val + byte_times(ga, sel + 1, 0.25f);
+        val = val + byte_times(gb, sel + 1, 0.25f);
+      }
+      acc = acc + val;
+    }
+  }
+  return acc;
+}
+
+template <int V>
+__device__ __forceinline__ float int_pixel(const TapTable& tab,
+                                           const char* q, int zero,
+                                           int s0, int l0, int loc00) {
+  constexpr int kRollShift[8] = {1, 3, 6, 10, 15, 21, 28, 29};
+  loc00 = clampi(loc00, -4, 256);
+  uint32_t acc = 0u;
+#pragma unroll 1
+  for (int pv = 0, off = 0; pv < kPV; ++pv, off += zero) {
+    const int s = (s0 + off) & 7, l = (l0 + off) & 127, loc0 = loc00 + off;
+    const char* row = q + (s << 9);                // the pixel's row
+    const char* pix = row + (l << 2);              // and its word
+    const char* rolled[8];                         // its rolled rows' words
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      rolled[j] = q + ((((s - kRollShift[j]) & 7) * 128 + l) << 2);
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+      const int32_t* tp = tab.v[t];
+      const int base = tp[BASE];                   // 4 x 8 T0 x 128
+      const int loc = clampi(loc0 + tp[T1], 0, 127);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (V == ROLL) {
+          acc += word_at(rolled[j], base);
+        } else if (V == GATHER) {
+          const uint32_t w = word_at(row, base + ((loc + j) << 2));
+          acc += loc <= 127 - j ? w : 0x80000000u;
+        } else if (V == SELECT) {
+          // a load under each step's condition: with one load a tap, nvcc
+          // sees that some step always writes it and keeps the last tap
+          if ((loc & 7) == j) acc = word_at(pix, base);
+        } else if (V == REPEAT) {
+          acc += word_at(pix, base);
+        } else {
+          acc += word_at(pix, base) >> (((loc + j) & 3) << 3);
+        }
+      }
+    }
+  }
+  return (float)(int32_t)acc;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gather_kernel(const TapTable tab,
               const int32_t* __restrict__ djs,      // [Hd, Wd]
               const int32_t* __restrict__ locs,     // [Hd, Wd]
               const int32_t* __restrict__ quads_g,  // [64, 256]
               float* __restrict__ out,              // [Hd, Wd]
-              int Hd, int Wd) {
-  extern __shared__ int32_t smem[];
-  int32_t* quads = smem;
-  int32_t* taps = smem + kQuadWords;
-  for (int i = threadIdx.x; i < kQuadWords; i += blockDim.x)
-    quads[i] = __ldg(quads_g + i);
-  for (int i = threadIdx.x; i < 2 * kTaps; i += blockDim.x)
-    taps[i] = taps_p.v[i];
+              int units, uint32_t row_magic, int zero) {
+  using S = Staged<V>;
+  extern __shared__ int4 smem4[];
+  int32_t* q = reinterpret_cast<int32_t*>(smem4);
+  constexpr int kVecs = S::kCols / 4;               // int4 a staged row
+  for (int i = threadIdx.x; i < S::kRows * kVecs; i += kThreads)
+    smem4[i] = __ldg(reinterpret_cast<const int4*>(
+        quads_g + (i / kVecs) * kQuadCols) + i % kVecs);
+  if (S::kPad > 0 && threadIdx.x < S::kPad)
+    q[S::kRows * S::kCols + threadIdx.x] = 0;
   __syncthreads();
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= Hd * Wd) return;
-  const int s = (p / Wd) & 7;
-  const int l = (p % Wd) & 127;
-  const int dj0 = __ldg(djs + p);
-  const int loc0 = __ldg(locs + p);
-
-  if (VARIANT == QUAD8 || VARIANT == P2X5) {
-    float acc = 0.0f;
-    for (int pv = 0; pv < kPV; ++pv) {
-      for (int t = 0; t < kTaps; ++t) {
-        const int T0 = taps[2 * t];
-        const int T1 = taps[2 * t + 1];
-        const int dj = clampi(dj0 + T0, 0, 7);
-        const int loc = clampi(loc0 + T1, 0, 255);
-        float val;
-        if (VARIANT == QUAD8) {
-          const int up = mod_floor(T1, 7) + 1;
-          const int n = s + dj;
-          const int r = n & 7;
-          const int hi = r >= 8 - mod_floor(up, 8) ? 1 : 0;
-          const int row = 8 * T0 + 8 * ((n >> 3) + hi) + mod_floor(r - up, 8);
-          const uint32_t g = (uint32_t)quads[row * kQuadCols + loc];
-          val = byte_f(g, 0) * 0.3f + byte_f(g, 1) * 0.2f;
-          val = val + byte_f(g, 2) * 0.25f;
-          val = val + byte_f(g, 3) * 0.25f;
-        } else {
-          const int j = (dj >> 1) - mod_floor(T1, 3) + 1;
-          const bool ok = j >= 0 && j <= 3;
-          const int row = 8 * T0 + ((s + 2 * j) & 7);
-          const int locb = min(loc + 1, 255);
-          const int sh = (dj & 1) << 3;
-          const uint32_t ga =
-              ok ? (uint32_t)quads[row * kQuadCols + loc] >> sh : 0u;
-          const uint32_t gb =
-              ok ? (uint32_t)quads[row * kQuadCols + locb] >> sh : 0u;
-          // i00 = byte 0 of gA, i01 = byte 0 of gB, i10 and i11 byte 1
-          val = byte_f(ga, 0) * 0.3f + byte_f(gb, 0) * 0.2f;
-          val = val + byte_f(ga, 1) * 0.25f;
-          val = val + byte_f(gb, 1) * 0.25f;
-        }
-        acc = acc + val;
-      }
-    }
-    out[p] = acc;
-    return;
+  // warp unit u (32 pixels of one row: Wd is a multiple of 128) goes to
+  // block u mod gridDim.x, so every SM gets its share within one unit; its
+  // row is u / units_per_row by a multiply (row_magic), x % 128 = p % 128
+  const int lane = threadIdx.x & 31;
+  for (int u = (threadIdx.x >> 5) * gridDim.x + blockIdx.x; u < units;
+       u += gridDim.x * kWarps) {
+    const int p = u * 32 + lane;
+    const int s = __umulhi((uint32_t)u, row_magic) & 7;
+    float v;
+    const char* qb = reinterpret_cast<const char*>(q);
+    if (V == QUAD8 || V == P2X5)
+      v = float_pixel<V>(tab, qb, zero, s, __ldg(djs + p), __ldg(locs + p));
+    else
+      v = int_pixel<V>(tab, qb, zero, s, p & 127, __ldg(locs + p));
+    out[p] = v;
   }
-
-  constexpr int kRollShift[8] = {1, 3, 6, 10, 15, 21, 28, 29};
-  uint32_t acc = 0u;
-  for (int pv = 0; pv < kPV; ++pv) {
-    for (int t = 0; t < kTaps; ++t) {
-      const int T0 = taps[2 * t];
-      const int loc = clampi(loc0 + taps[2 * t + 1], 0, 127);
-      const int32_t* blk = quads + 8 * T0 * kQuadCols;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (VARIANT == ROLL) {
-          acc += (uint32_t)blk[((s - kRollShift[j]) & 7) * kQuadCols + l];
-        } else if (VARIANT == GATHER) {
-          const int c = loc + j;
-          acc += c <= 127 ? (uint32_t)blk[s * kQuadCols + c] : 0x80000000u;
-        } else if (VARIANT == SELECT) {
-          if ((loc & 7) == j) acc = (uint32_t)blk[s * kQuadCols + l];
-        } else if (VARIANT == REPEAT) {
-          acc += (uint32_t)blk[s * kQuadCols + l];
-        } else {
-          acc += (uint32_t)blk[s * kQuadCols + l] >> (((loc + j) & 3) << 3);
-        }
-      }
-    }
-  }
-  out[p] = (float)(int32_t)acc;
 }
 
-template <int VARIANT>
-int launch(const Taps& taps, const int32_t* djs, const int32_t* locs,
+__global__ void empty_kernel() {}
+
+// resident blocks an SM at the variant's block size and shared memory, SMs
+// (CUDA sizes each launch's shared memory carveout for occupancy)
+template <int V>
+cudaError_t grid_of(int* per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, gather_kernel<V>, kThreads, Staged<V>::kBytes);
+  return err;
+}
+
+// blocks an SM: as many as fit (the occupancy API's answer), but no more
+// than the units fill with a warp each, so that no block only stages
+int blocks_per_sm(int fit, int sms, uint64_t units) {
+  const uint64_t warps = (uint64_t)sms * kWarps;
+  return (int)min((uint64_t)fit, (units + warps - 1) / warps);
+}
+
+template <int V>
+int launch(const TapTable& tab, const int32_t* djs, const int32_t* locs,
            const int32_t* quads, float* out, int Hd, int Wd,
            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_kernel<VARIANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
+  int per_sm = 0, sms = 0;
+  cudaError_t err = grid_of<V>(&per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
-  const int n = Hd * Wd;
-  gather_kernel<VARIANT><<<(n + kThreads - 1) / kThreads, kThreads, kSmem,
-                           stream>>>(taps, djs, locs, quads, out, Hd, Wd);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // u / units_per_row = umulhi(u, ceil(2^32 / units_per_row)) holds for
+  // u * units_per_row < 2^32
+  const uint64_t upr = (uint64_t)Wd / 32, units = (uint64_t)Hd * Wd / 32;
+  if (units * upr >= (1ull << 32)) return (int)cudaErrorInvalidValue;
+  const uint32_t magic = (uint32_t)(((1ull << 32) + upr - 1) / upr);
+  const int blocks = sms * blocks_per_sm(per_sm, sms, units);
+  gather_kernel<V><<<blocks, kThreads, Staged<V>::kBytes, stream>>>(
+      tab, djs, locs, quads, out, (int)units, magic, 0);
   return (int)cudaGetLastError();
+}
+
+template <int V>
+int info(int units, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = grid_of<V>(out + 6, out + 1);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gather_kernel<V>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = blocks_per_sm(out[6], out[1], (uint64_t)units);
+  out[2] = attr.numRegs;
+  out[3] = (int)Staged<V>::kBytes;
+  out[4] = (int)attr.localSizeBytes;
+  out[5] = kThreads;
+  return 0;
 }
 
 }  // namespace
 
-// taps_host: the [36, 2] taps in host memory, passed by value to the kernel
-extern "C" int launch_gather_bench(int variant, const int32_t* taps_host,
+// table_host: gather_variants.tap_table(variant, taps), [36, 6] int32 in
+// host memory, passed by value in the kernel's parameter block.  Hd * Wd
+// is a multiple of 32 (the wrapper checks the 8 x 128 tiling).
+extern "C" int launch_gather_bench(int variant, const int32_t* table_host,
                                    const int32_t* djs, const int32_t* locs,
                                    const int32_t* quads, float* out, int Hd,
                                    int Wd, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Hd * Wd == 0) return (int)cudaGetLastError();
-  Taps taps;
-  for (int i = 0; i < 2 * kTaps; ++i) taps.v[i] = taps_host[i];
+  TapTable tab;
+  for (int i = 0; i < kTaps * kFields; ++i) tab.v[i / kFields][i % kFields] =
+      table_host[i];
   switch (variant) {
-    case QUAD8: return launch<QUAD8>(taps, djs, locs, quads, out, Hd, Wd, st);
-    case P2X5: return launch<P2X5>(taps, djs, locs, quads, out, Hd, Wd, st);
-    case ROLL: return launch<ROLL>(taps, djs, locs, quads, out, Hd, Wd, st);
-    case GATHER: return launch<GATHER>(taps, djs, locs, quads, out, Hd, Wd, st);
-    case SELECT: return launch<SELECT>(taps, djs, locs, quads, out, Hd, Wd, st);
-    case REPEAT: return launch<REPEAT>(taps, djs, locs, quads, out, Hd, Wd, st);
-    case VSHIFT: return launch<VSHIFT>(taps, djs, locs, quads, out, Hd, Wd, st);
+    case QUAD8: return launch<QUAD8>(tab, djs, locs, quads, out, Hd, Wd, st);
+    case P2X5: return launch<P2X5>(tab, djs, locs, quads, out, Hd, Wd, st);
+    case ROLL: return launch<ROLL>(tab, djs, locs, quads, out, Hd, Wd, st);
+    case GATHER: return launch<GATHER>(tab, djs, locs, quads, out, Hd, Wd, st);
+    case SELECT: return launch<SELECT>(tab, djs, locs, quads, out, Hd, Wd, st);
+    case REPEAT: return launch<REPEAT>(tab, djs, locs, quads, out, Hd, Wd, st);
+    case VSHIFT: return launch<VSHIFT>(tab, djs, locs, quads, out, Hd, Wd, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// out[7] for a launch over `units` warp units: blocks an SM it launches,
+// SMs, registers a thread, dynamic shared memory a block (bytes), local
+// memory a thread (bytes), threads a block, blocks an SM that fit
+extern "C" int gather_bench_info(int variant, int units, int* out) {
+  switch (variant) {
+    case QUAD8: return info<QUAD8>(units, out);
+    case P2X5: return info<P2X5>(units, out);
+    case ROLL: return info<ROLL>(units, out);
+    case GATHER: return info<GATHER>(units, out);
+    case SELECT: return info<SELECT>(units, out);
+    case REPEAT: return info<REPEAT>(units, out);
+    case VSHIFT: return info<VSHIFT>(units, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// an empty kernel on `blocks` blocks of the K6 block size: the launch floor
+extern "C" int launch_gather_bench_empty(int blocks, void* stream) {
+  empty_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
