@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (dvpmvs_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --dist-only]
+    python3 chip_smoke.py [--profile | --dist-only | --tiles-only]
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels (csrc/*.cu, one nvcc per source, in
@@ -23,7 +23,11 @@
    into shared memory and the 36 tap moments there) on one ground-truth
    plane and on 17 perturbed planes with the radius map's tap weights,
    against its plain version (K5's plain field and 36 rolled moment sums
-   per plane);
+   per plane); then K1 (packed on both colors; dense, per-pixel r), K2
+   (K=61), K3 (per view, fold, parity 0 and 1) and K5's warp NCC on the
+   row window [303, 455) (an odd first row; K5 with 5 rows of halo), each
+   bit for bit the whole launch's rows and its plain version on the
+   window;
 4. path phase, round 0: runs the main path of pyramid round 0 through the
    port's entry point run_pass with the "fused" backend: FIRST_INIT on
    views 0-4 of a synthetic 608x800 scene (10 replicated source views,
@@ -72,7 +76,8 @@
 10. exact phase: the APD REFINE_ITER of step 5's band scene, view 0, with
    the reference-exact deformable oracle (``exact_deformable``) from the
    same band FIRST_INIT; prints its wall, device events and busy time (one
-   more run under torch.profiler), acc2 and the textureless region's acc2
+   more run under torch.profiler, device activity only), acc2 and the
+   textureless region's acc2
    beside the production passes of steps 5 and 7 on the band scene (also
    profiled once); checks that K1 and K3 (per view: the exact weak
    half-iterations run on the full grid) ran and K4 did not;
@@ -82,8 +87,8 @@
    steps of the solved depth at >= 90 % of the textured pixels; then
    ``show_medium_result`` over round 0 of a two-view folder where PIL
    imports (it prints whether it ran);
-12. dist phase: the scene phase's 11-view 608x800 folder, round 0 through
-   the batched schedule (mesh_views=2) in this process, over two ranks
+12. dist phase: the scene phase's 11-view 608x800 folder, round 0 (cut to
+   FIRST_INIT and one REFINE_ITER) through the batched schedule (mesh_views=2) in this process, over two ranks
    (spawned processes: gloo on the one card, NCCL on two cards) and over
    a one-rank NCCL group: every depth map bit for bit equal to the
    one-process run, K1, K2 and K3 (per view) launched in every rank;
@@ -92,10 +97,18 @@
    sync and with the collective exchange, the same depths (the phase's
    docstring has the checks; ``--dist-only`` runs this phase alone and
    prints no result line);
-13. with ``--profile`` only: runs each pass once more under torch.profiler
+13. tiles phase: the bench scene's view 0, FIRST_INIT, REFINE_ITER of
+   round 0 with the radius map, the APD REFINE_ITER and the warp
+   REFINE_ITER, untiled and row-tiled over two ranks (gloo on the one card,
+   NCCL on two): every output field bit for bit the untiled one on both
+   ranks, K1-K5 launched in each; each run's wall, device events and busy
+   time (one more run under torch.profiler, device activity only) and
+   ``max_memory_allocated`` (``--tiles-only`` runs the row windows and
+   this phase alone and prints no result line);
+14. with ``--profile`` only: runs each pass once more under torch.profiler
    and prints the device's busy time and the device time by kernel, and
    the same for the anchor search and one RANSAC fit on their own;
-14. prints one JSON line with the kernels' numbers, the card line, and as
+15. prints one JSON line with the kernels' numbers, the card line, and as
    the last line {"ok": true, "device": {...}}.
 
 Every path step resets the launch counts just before it and reads them just
@@ -1026,16 +1039,18 @@ def taps_phase(torch, dev, scene, first, band, band_first, band_before,
     return totals, summary, {label: r[3]}, br[3]
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, host: bool = True):
     """One more run of ``fn`` under torch.profiler: (the device events'
     intervals in us, the device us by event name, the device's busy
-    seconds -- the union of the intervals --, the run's wall seconds)."""
+    seconds -- the union of the intervals --, the run's wall seconds).
+    ``host`` False records the device's activity alone, which the profiler
+    processes several times faster."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1085,7 +1100,7 @@ def exact_phase(torch, dev, band, band_first, band_before, prod):
     rows.update(prod)
     summary = {}
     for name, (fn, wall, a, ra) in rows.items():
-        spans, _, busy, pwall = device_profile(torch, fn)
+        spans, _, busy, pwall = device_profile(torch, fn, host=False)
         events = len(spans)
         if events <= 0:
             raise AssertionError(f"{name}: the profiler saw no device event")
@@ -1557,7 +1572,7 @@ def rounds_phase(torch):
     return launches, summary
 
 
-DIST_GEOM_PASSES = 3         # round 0: FIRST_INIT and 3 REFINE_ITER
+DIST_GEOM_PASSES = 1         # round 0 cut to FIRST_INIT and 1 REFINE_ITER
 DIST_MH_GEOM_PASSES = 1      # the multi-host runs: FIRST_INIT, 1 REFINE_ITER
 
 
@@ -1625,8 +1640,8 @@ def dist_multihost_rank(mesh, folder, sync_dir):
 
 def dist_phase(torch, card="cuda:0", nccl="nccl"):
     """The view-sharded scene run on the card: the scene phase's folder (11
-    views, 608x800, V=10), round 0 (FIRST_INIT and 3 REFINE_ITER, the fused
-    backend), through the port's batched schedule (mesh_views=2):
+    views, 608x800, V=10), round 0 cut to FIRST_INIT and one REFINE_ITER
+    (the fused backend), through the port's batched schedule (mesh_views=2):
     (a) in this process, no process group; (b) two ranks, each a process of
     its own (dvpmvs_torch.dist.launch): both on cuda:0 with gloo (state
     exchanged through the host) on a one-card machine, NCCL on cuda:0 and
@@ -1847,6 +1862,309 @@ def dist_phase(torch, card="cuda:0", nccl="nccl"):
     return summary
 
 
+# ------------------------------------------------- row windows and tiles --
+
+WIN_Y0, WIN_H = 303, 152     # an odd first row, half a tile rank's rows
+
+
+def bitwise(torch, got, want, what: str):
+    """Raise unless ``got`` equals ``want`` bit for bit (NaN where both
+    are NaN counts as equal); prints the max |d|."""
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    d = torch.where(both_nan, torch.zeros_like(got), torch.abs(got - want))
+    d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+    mx = float(d.max()) if d.numel() else 0.0
+    print(f"  {what}: max|d|={mx:.3e}", flush=True)
+    if mx != 0.0 or got.shape != want.shape:
+        raise AssertionError(f"{what}: not bit for bit equal")
+
+
+def window_checks(torch, dev, scene, reps):
+    """K1 (packed, both colors; dense with a per-pixel radius), K2 (K=61),
+    K3 (per view, fold, parity 0 and 1) and K5's launch_warp_ncc (17
+    planes, 5 rows of halo) on the row window [303, 455) against the rows
+    of the whole-image launch and against their plain versions on the
+    window, bit for bit."""
+    from dvpmvs_torch.engine.packing import pack_parity
+    from dvpmvs_torch.geometry import stack_cameras
+    from dvpmvs_torch.kernels import geom_fused, ncc_fused, sweep_fused
+    from dvpmvs_torch.kernels import warp_fused
+    from dvpmvs_torch.kernels.geom import build_geom_context
+    from dvpmvs_torch.kernels.ncc import _grid, build_cost_context
+    from dvpmvs_torch.kernels.sampling import plane_from_normal_depth
+    from dvpmvs_torch.kernels.sweep import _mean_selected_baseline
+
+    y0, h = WIN_Y0, WIN_H
+    win = lambda a, axis=0: a.narrow(axis, y0, h).contiguous()
+    ref_cam = scene.cameras[0].to(dev)
+    src_cams = stack_cameras([scene.cameras[i] for i in reps]).to(dev)
+    ref_img = torch.as_tensor(scene.images[0], device=dev)
+    src_imgs = torch.as_tensor(scene.images[reps], device=dev).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    ctx = build_cost_context(ref_img, src_imgs, ref_cam, src_cams, 5.0, 3.0,
+                             backend="fused")
+    ctx_r = build_cost_context(ref_img, src_imgs, ref_cam, src_cams, 5.0,
+                               3.0, radius_map=3.0 + 4.0 * rand(H, W),
+                               backend="fused")
+    xs, ys = _grid(H, W, dev)
+    gt_depth = torch.as_tensor(scene.gt_depth[0], device=dev)
+    gt_plane = plane_from_normal_depth(
+        torch.as_tensor(scene.gt_normal[0], device=dev), gt_depth, xs, ys,
+        ref_cam)
+    planes = gt_plane[None].repeat(17, 1, 1, 1)
+    planes[..., 3] *= 1.0 + 0.1 * (rand(17, H, W) - 0.5)
+
+    def k1(c, pl, par, rows):
+        f = rows
+        wsums = torch.stack([c.sum_w, c.sum_wref, c.sum_wref2])
+        args = (f(pl, 1), f(c.w_taps, 1), f(c.wref_taps, 1), f(wsums, 1),
+                c.src_imgs, c.M, c.b, c.cam, c.src_wh)
+        return args, dict(radius=5.0, radius_map=f(c.radius)
+                          if c.has_radius_map else None, parity=par)
+
+    for label, c, par in (("packed, parity 0", ctx, 0),
+                          ("packed, parity 1", ctx, 1),
+                          ("dense, per-pixel r", ctx_r, None)):
+        if par is None:
+            whole_rows, win_rows = (lambda a, axis=0: a.contiguous()), win
+        else:
+            whole_rows = (lambda a, axis=0, par=par:
+                          pack_parity(a, par, axis).contiguous())
+            win_rows = (lambda a, axis=0, par=par:
+                        pack_parity(a.narrow(axis, y0, h), par, axis,
+                                    y0).contiguous())
+        args, kw = k1(c, planes, par, whole_rows)
+        whole = ncc_fused.fused_ncc_costs(*args, **kw)
+        args, kw = k1(c, planes, par, win_rows)
+        got = ncc_fused.fused_ncc_costs(*args, **kw, y0=y0)
+        want = ncc_fused.fused_ncc_costs_plain(*args, **kw, y0=y0)
+        torch.cuda.synchronize()
+        bitwise(torch, got, whole[:, y0:y0 + h], f"ncc_fused window {label}"
+                " vs whole-image rows")
+        bitwise(torch, got, want, f"ncc_fused window {label} vs plain")
+
+    sel = torch.ones((H, W, V), dtype=torch.bool, device=dev)
+    baseline, _ = _mean_selected_baseline(sel, ref_cam, src_cams)
+    vw = torch.movedim(rand(H, W, V), -1, 0).contiguous()
+    invd0 = (1.0 / torch.clamp(gt_depth, min=1e-12)).contiguous()
+    fxbl = ref_cam.fx * baseline
+    invbl = torch.where(fxbl > 0, 1.0 / torch.clamp(fxbl, min=1e-12),
+                        torch.zeros_like(fxbl)).contiguous()
+    wsums = torch.stack([ctx.sum_w, ctx.sum_wref, ctx.sum_wref2])
+    tail = (ctx.src_imgs, ctx.M, ctx.b, ctx.cam, ctx.src_wh)
+    whole = sweep_fused.sweep_weighted_ncc(
+        invd0, invbl, vw, ctx.w_taps, ctx.wref_taps, wsums, *tail, K=61,
+        k0=30)
+    wargs = (invd0, invbl, win(vw, 1), win(ctx.w_taps, 1),
+             win(ctx.wref_taps, 1), win(wsums, 1), *tail)
+    got = sweep_fused.sweep_weighted_ncc(*wargs, K=61, k0=30, y0=y0)
+    want = sweep_fused.sweep_weighted_ncc_plain(*wargs, K=61, k0=30, y0=y0)
+    torch.cuda.synchronize()
+    bitwise(torch, got, whole[:, y0:y0 + h], "sweep K=61 window vs "
+            "whole-image rows")
+    bitwise(torch, got, want, "sweep K=61 window vs plain")
+
+    gctx = build_geom_context(torch.as_tensor(scene.gt_depth[reps],
+                                              device=dev), ref_cam, src_cams)
+    vwl = torch.movedim(vw, 0, -1)
+    for label, K, kw, par in (("per view, K=8", 8, {}, None),
+                              ("fold, K=61", 61, {"fold": True}, None),
+                              ("parity 0, K=10", 10, {}, 0),
+                              ("parity 1, K=10", 10, {}, 1)):
+        stack = gt_depth[None] * (1.0 + 0.02 * (torch.arange(
+            K, dtype=torch.float32, device=dev) - K // 2))[:, None, None]
+        fw = ({"vweights": vwl} if kw else {})
+        if par is None:
+            whole = geom_fused.geom_cost(gctx, stack.contiguous(), **fw,
+                                         **kw)
+            ws, fw_w = win(stack, 1), ({"vweights": win(vwl)} if kw else {})
+        else:
+            whole = geom_fused.geom_cost(
+                gctx, pack_parity(stack, par, 1).contiguous(), parity=par)
+            ws = pack_parity(stack.narrow(1, y0, h), par, 1, y0).contiguous()
+            fw_w, kw = {}, {"parity": par}
+        got = geom_fused.geom_cost(gctx, ws, y0=y0, **fw_w, **kw)
+        want = geom_fused.geom_cost_plain(gctx, ws, y0=y0, **fw_w, **kw)
+        torch.cuda.synchronize()
+        bitwise(torch, got, whole[:, y0:y0 + h], f"geom {label} window vs "
+                "whole-image rows")
+        bitwise(torch, got, want, f"geom {label} window vs plain")
+
+    R = 5
+    halo = lambda a, axis=0: a.narrow(axis, y0 - R, h + 2 * R).contiguous()
+    targs = lambda f: (f(planes, 1), ctx.src_imgs, ctx.M, ctx.b, ctx.cam,
+                       ctx.src_wh, f(ctx.w_taps, 1), f(ctx.wref_taps, 1),
+                       f(ctx.sum_w), f(ctx.sum_wref), f(ctx.sum_wref2), R)
+    whole = warp_fused.warp_ncc(*targs(lambda a, axis=0: a))
+    got = warp_fused.warp_ncc(*targs(halo), y0=y0 - R)
+    want = warp_fused.warp_ncc_plain(*targs(halo), y0=y0 - R)
+    torch.cuda.synchronize()
+    bitwise(torch, got[:, R:R + h], whole[:, y0:y0 + h], "warp_ncc B=17 "
+            "window (5 rows of halo) vs whole-image rows")
+    bitwise(torch, got, want, "warp_ncc B=17 window vs plain")
+
+
+TILE_FIELDS = ("depth", "normal_world", "cost", "weak", "sel_views",
+               "view_weights", "radius", "weak_overflow")
+# the kernels each tiled pass must launch in every rank
+TILE_KERNELS = {"FIRST_INIT": ("ncc_fused", "sweep"),
+                "REFINE_ITER (radius map)": ("ncc_fused", "geom/per view"),
+                "REFINE_ITER (APD, geom)": ("ncc_fused", "anchor",
+                                            "geom/parity", "sweep"),
+                "REFINE_ITER (warp, radius map)": ("warp/ncc",
+                                                   "geom/per view")}
+
+
+def tile_passes(torch, dev, scene, first):
+    """The tiles phase's passes on view 0: {label: (static, dyn, seed,
+    inputs)}, the inputs on the CPU."""
+    from dvpmvs_torch.config import PMDynamic, PMStatic, RunState
+    from dvpmvs_torch.config import round_pass_params
+
+    reps, cam, edge = problem(torch, scene, 0)
+    out0 = first[0][0]
+    lim = (float(cam.depth_min), float(cam.depth_max))
+    base = PMStatic(num_src=V, max_iterations=ITERS, cost_backend="fused")
+    init = dict(init_plane_world=torch.cat(
+        [out0.normal_world, out0.depth[..., None]], -1).cpu(),
+        init_sel_views=out0.sel_views.cpu(), init_weak=out0.weak.cpu(),
+        src_depths=torch.stack([first[r][0].depth for r in reps]).cpu(),
+        edge=edge)
+    st0, dyn0 = round_pass_params(0, 1, 0, base, *lim)
+    st1, dyn1 = round_pass_params(0, 1, 1, base, *lim)
+    st_w, _ = round_pass_params(0, 1, 1, base.replace(cost_backend="warp"),
+                                *lim)
+    st_apd = PMStatic(state=RunState.REFINE_ITER, num_src=V,
+                      max_iterations=ITERS, cost_backend="fused",
+                      use_APD=True, geom_consistency=True, use_label=False)
+    with_r = dict(init, radius_map=out0.radius.cpu())
+    return {
+        "FIRST_INIT": (st0, dyn0, 0, dict(edge=edge)),
+        "REFINE_ITER (radius map)": (st1, dyn1, 100, with_r),
+        "REFINE_ITER (APD, geom)": (st_apd, PMDynamic.create(
+            depth_min=lim[0], depth_max=lim[1]), 0, init),
+        "REFINE_ITER (warp, radius map)": (st_w, dyn1, 100, with_r),
+    }, reps
+
+
+def _tile_run(torch, fn, dev):
+    """fn() on ``dev`` with the launch counts reset just before it: (out,
+    wall s, launches, peak allocated bytes, device events or None)."""
+    from dvpmvs_torch.kernels import _build
+
+    card = torch.device(dev).type == "cuda"     # (a CPU rehearsal: no card)
+    _sync(torch, dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in counts().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev) if card else 0
+    events = None
+    if card:
+        spans, _, busy, _ = device_profile(torch, fn, host=False)
+        events = (len(spans), busy)
+    return out, wall, launches, peak, events
+
+
+def tiles_rank(mesh, path):
+    """One rank of the tiles phase: each pass of ``path`` through
+    make_tiled_pass over the group, held bit for bit to the untiled
+    outputs saved there; its wall, launches, peak memory, device events."""
+    import torch
+    from dvpmvs_torch.dist import make_tiled_pass
+    from dvpmvs_torch.rng import TorchDraws
+
+    saved = torch.load(path, weights_only=False)
+    ref_img, src_imgs, cam, src_cams = saved.pop("inputs")
+    dev = mesh.device
+    res = {}
+    for label, (st, dyn, seed, kw, want) in saved.items():
+        fn = (lambda st=st, dyn=dyn, seed=seed, kw=kw: make_tiled_pass(
+            st, mesh)(ref_img, src_imgs, cam, src_cams, dyn,
+                    TorchDraws(seed, dev), **kw))
+        out, wall, launches, peak, events = _tile_run(torch, fn, dev)
+        equal = {f: bool(torch.equal(getattr(out, f).cpu(), want[f]))
+                 for f in TILE_FIELDS if want[f] is not None}
+        res[label] = {"wall_s": wall, "launches": launches,
+                      "peak_bytes": peak, "events": events, "equal": equal}
+    return {"rank": mesh.rank, "device": str(dev), "passes": res}
+
+
+def tiles_phase(torch, dev, scene, first):
+    """The row-tiled pass on view 0 of the bench scene (608x800, V=10):
+    FIRST_INIT, REFINE_ITER of round 0 with the radius map, the APD
+    REFINE_ITER and the warp REFINE_ITER, untiled in this process and then
+    over two ranks (gloo on the one card, NCCL on two cards): every rank's
+    whole output bit for bit the untiled one, K1-K5 launched in every rank;
+    each run's wall, device events and peak allocated memory."""
+    import tempfile
+    from dvpmvs_torch.dist import launch
+    from dvpmvs_torch.engine import run_pass
+    from dvpmvs_torch.geometry import stack_cameras
+    from dvpmvs_torch.rng import TorchDraws
+
+    t_phase = time.perf_counter()
+    passes, reps = tile_passes(torch, dev, scene, first)
+    cam = scene.cameras[0]
+    src_cams = stack_cameras([scene.cameras[i] for i in reps])
+    saved = {"inputs": (scene.images[0], scene.images[reps], cam, src_cams)}
+    summary = {"untiled": {}, "ranks": {}}
+    for label, (st, dyn, seed, kw) in passes.items():
+        fn = (lambda st=st, dyn=dyn, seed=seed, kw=kw: run_pass(
+            scene.images[0], scene.images[reps], cam, src_cams, st, dyn,
+            TorchDraws(seed, dev), device=dev, **kw))
+        out, wall, launches, peak, events = _tile_run(torch, fn, dev)
+        summary["untiled"][label] = {"wall_s": wall, "peak_bytes": peak,
+                                     "events": events}
+        print(f"  {label} untiled: {wall:.3f} s, peak {peak / 2**30:.3f} "
+              f"GiB, device events {events}", flush=True)
+        saved[label] = (st, dyn, seed, kw, {
+            f: (None if getattr(out, f) is None else getattr(out, f).cpu())
+            for f in TILE_FIELDS})
+    n_cards = torch.cuda.device_count()
+    one = torch.device(dev)
+    one = f"cuda:{one.index or 0}" if one.type == "cuda" else str(one)
+    devices, backend = ((["cuda:0", "cuda:1"], "nccl") if n_cards >= 2
+                        else ([one] * 2, "gloo"))
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "tiles.pt")
+        torch.save(saved, path)
+        t0 = time.perf_counter()
+        outs = launch(tiles_rank, 2, (path,), workdir=work,
+                      devices=devices, backend=backend)
+        summary["launch_s"] = time.perf_counter() - t0
+    for o in outs:
+        for label, r in o["passes"].items():
+            print(f"  {label} tiled, rank {o['rank']} of 2 ({o['device']}, "
+                  f"{backend}): {r['wall_s']:.3f} s, peak "
+                  f"{r['peak_bytes'] / 2**30:.3f} GiB, device events "
+                  f"{r['events']}, equal {r['equal']}, launches "
+                  f"{r['launches']}", flush=True)
+            if not all(r["equal"].values()):
+                raise AssertionError(f"{label}, rank {o['rank']}: the tiled "
+                                     f"pass differs from the untiled one")
+            require_launched(r["launches"], TILE_KERNELS[label],
+                             f"the tiled {label}, rank {o['rank']}")
+        totals = {}
+        for r in o["passes"].values():
+            for k, n in r["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+        require_launched(totals, ("ncc_fused", "sweep", "geom", "anchor",
+                                  "warp/ncc"), f"the tiles phase, rank "
+                         f"{o['rank']}")
+        summary["ranks"][o["rank"]] = o["passes"]
+    summary["backend"] = backend
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"  tiles phase: {summary['phase_s']:.1f} s", flush=True)
+    return summary
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1877,8 +2195,21 @@ def main() -> int:
 
     scene = make_scene(num_views=5, height=H, width=W, seed=2)
     reps0 = [[1, 2, 3, 4][j % 4] for j in range(V)]
+    if "--tiles-only" in sys.argv[1:]:
+        # development: the row windows and the tiles phase alone (no result
+        # line)
+        window_checks(torch, dev, scene, reps0)
+        base = _dist_base().replace(num_src=V)
+        first, _, _ = first_init_views(torch, dev, scene, base, "")
+        print(json.dumps({"path": {"tiles": tiles_phase(
+            torch, dev, scene, first)}}), flush=True)
+        print(card_line(), flush=True)
+        return 0
     print("kernel phase (kernel vs plain on the card):", flush=True)
     rows = kernel_phase(torch, dev, scene, reps0)
+    print("kernel phase, row windows (an odd first row) against the "
+          "whole-image launches and the plain versions:", flush=True)
+    window_checks(torch, dev, scene, reps0)
     print("path phase, round 0 (fused backend, 608x800, V=10):", flush=True)
     runs = {}
     runs["round0"], summary, passes, first = path_phase(torch, dev, scene)
@@ -1923,6 +2254,9 @@ def main() -> int:
           f"views, {H}x{W}, V={V}, round 0; MultiHostRunner; sharded "
           f"fusion):", flush=True)
     summary["dist"] = dist_phase(torch)
+    print(f"tiles phase (the row-tiled pass over two ranks, view 0, {H}x{W}, "
+          f"V={V}):", flush=True)
+    summary["tiles"] = tiles_phase(torch, dev, scene, first)
     if "--profile" in sys.argv[1:]:
         print("profile phase (torch.profiler, one run of each pass):",
               flush=True)

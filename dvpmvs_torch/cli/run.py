@@ -17,8 +17,8 @@ names (``fused``, the counterpart of JAX's ``pallas``, which it also
 accepts, ``exact`` and ``warp``).  ``scene --mesh-views N`` runs the
 batched schedule over n = min(N, cards) ranks, one process per card joined
 by NCCL (with ``--device cpu``, N gloo ranks on the CPU); for n = 1 it runs
-in this process.  ``--mesh-tiles`` above 1 raises: the row-tiled pass is
-not ported yet (ROADMAP.md, Queue 1 item 7).
+in this process.  ``scene --mesh-tiles N`` starts ranks the same way and
+row-tiles every view pass over them (dist/tiles.py).
 """
 
 from __future__ import annotations
@@ -29,24 +29,21 @@ from pathlib import Path
 
 
 def _cmd_scene(args) -> int:
-    """The scene command: in this process, or over ``--mesh-views`` ranks
-    (one process each; rank 0 writes the checkpoint, the metrics and the
-    PLY)."""
+    """The scene command: in this process, or over ``--mesh-views`` (else
+    ``--mesh-tiles``) ranks (one process each; rank 0 writes the
+    checkpoint, the metrics and the PLY)."""
     import tempfile
 
     import torch
 
-    if args.mesh_tiles > 1:
-        raise NotImplementedError(
-            "the row-tiled pass (--mesh-tiles > 1) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
     on_cpu = (args.device is not None
               and torch.device(args.device).type == "cpu")
     n = 1
-    if args.mesh_views > 1:
-        n = (args.mesh_views if on_cpu
-             else min(args.mesh_views, torch.cuda.device_count()))
-        print(f"[dvpmvs_torch] --mesh-views {args.mesh_views}: {n} rank(s)"
+    axis, want = (("views", args.mesh_views) if args.mesh_views > 1
+                  else ("tiles", args.mesh_tiles))
+    if want > 1:
+        n = want if on_cpu else min(want, torch.cuda.device_count())
+        print(f"[dvpmvs_torch] --mesh-{axis} {want}: {n} rank(s)"
               + ("" if on_cpu else f" ({torch.cuda.device_count()} card(s))")
               + (", in this process" if n <= 1 else ""), flush=True)
     if n <= 1:
@@ -214,8 +211,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "schedule over min(N, cards) ranks, one process "
                          "each (NCCL; with --device cpu, N gloo ranks)")
     ps.add_argument("--mesh-tiles", type=int, default=1,
-                    help="devices along the image-row axis (not ported "
-                         "above 1: ROADMAP.md, Queue 1 item 7)")
+                    help="devices along the image-row axis: above 1 (and "
+                         "--mesh-views 1), every view pass row-tiled over "
+                         "min(N, cards) ranks started as for --mesh-views")
     ps.add_argument("--full-res-round", action="store_true",
                     help="add the full-resolution round the reference "
                          "schedule stops before (main.cpp:450)")

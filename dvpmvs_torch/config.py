@@ -115,8 +115,9 @@ class SceneConfig:
     that ``SceneRunner`` reads, with their defaults.  ``mesh_views`` above
     1 runs each pass as one batch of all views, split over the ranks of the
     runner's process group (in one process when it has none);
-    ``mesh_tiles`` above 1 raises in ``SceneRunner``: the row-tiled pass is
-    not ported (ROADMAP.md, Queue 1 item 7)."""
+    ``mesh_tiles`` above 1 row-tiles each view pass over the group's ranks
+    (untiled with no group, with ``mesh_views`` above 1, or where the
+    height does not divide)."""
 
     output_folder: str = ""            # where show_medium_result writes
     max_base_size: int = 800           # pyramid: halve until maxdim <= this

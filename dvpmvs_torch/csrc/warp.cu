@@ -31,7 +31,10 @@
 // not as an inverse depth, so s is formed in the plain version's order.
 //
 // launch_warp_ncc is the "warp" backend's cost of a candidate batch,
-// planes [B, H, W, 4] -> cost [B, H, W, V]: the function of JAX's
+// planes [B, H, W, 4] -> cost [B, H, W, V] (or a window of rows: the
+// planes and costs of image rows (y0 + i) mod H, i < Hin, the taps
+// wrapping within them; the tiled pass gives its window a halo of rows, so
+// that the taps of its own rows read real rows): the function of JAX's
 // dvpmvs/kernels/ncc.py::_ncc_cost_warp for each plane, i.e. K5's warped
 // field followed by the XLA moment sums that read it at the 36 taps' static
 // integer shifts (dx_t, dy_t) of the static radius, wrapping at the image
@@ -131,16 +134,16 @@ __device__ __forceinline__ float bilinear(const float* __restrict__ img,
   return top * (1.0f - fy) + bot * fy;
 }
 
-// The ray (rx, ry) of pixel (x, y) and the plane term s of the plane field
-// [H, W, 4] (n, w) there.
+// The ray (rx, ry) of image pixel (x, y) and the plane term s of the plane
+// field [., W, 4] (n, w) at its row yp.
 __device__ __forceinline__ void ray_plane(const float* __restrict__ plane,
                                           const float* __restrict__ cam,
-                                          int x, int y, int W, float& rx,
-                                          float& ry, float& s) {
+                                          int x, int y, int yp, int W,
+                                          float& rx, float& ry, float& s) {
   rx = ((float)x - __ldg(cam + 0)) / __ldg(cam + 2);
   ry = ((float)y - __ldg(cam + 1)) / __ldg(cam + 3);
   const float4 pl =
-      __ldg(reinterpret_cast<const float4*>(plane) + (size_t)y * W + x);
+      __ldg(reinterpret_cast<const float4*>(plane) + (size_t)yp * W + x);
   s = (pl.x * rx + pl.y * ry + pl.z) / pl.w;
 }
 
@@ -180,7 +183,7 @@ warp_kernel(const float* __restrict__ plane,   // [H, W, 4] (n, w)
   const int HW = H * W;
   if (p >= HW) return;
   float rx, ry, s;
-  ray_plane(plane, cam, p % W, p / W, W, rx, ry, s);
+  ray_plane(plane, cam, p % W, p / W, p / W, W, rx, ry, s);
   for (int v = 0; v < V; ++v) {
     bool iv;
     warped[(size_t)v * HW + p] =
@@ -202,20 +205,23 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : i;
 }
 
+// The rows are image rows (y0 + i) mod H, i < Hin (the whole image: y0 = 0,
+// Hin = H).  A tap row wraps within them: the image's wrap for the whole
+// image, a real neighbouring row for a window's rows that have a halo.
 __global__ void __launch_bounds__(kPix, kMinBlocks)
-warp_ncc_kernel(const float* __restrict__ planes,     // [B, H, W, 4]
+warp_ncc_kernel(const float* __restrict__ planes,     // [B, Hin, W, 4]
                 const float* __restrict__ src,        // [V, H, W]
                 const float* __restrict__ mats,       // [V, 12]
                 const float* __restrict__ cam,        // [4]
                 const float* __restrict__ src_wh,     // [V, 2]
-                const float* __restrict__ w_taps,     // [36, H, W]
-                const float* __restrict__ wref_taps,  // [36, H, W]
-                const float* __restrict__ sum_w,      // [H, W]
-                const float* __restrict__ sum_wref,   // [H, W]
-                const float* __restrict__ sum_wref2,  // [H, W]
+                const float* __restrict__ w_taps,     // [36, Hin, W]
+                const float* __restrict__ wref_taps,  // [36, Hin, W]
+                const float* __restrict__ sum_w,      // [Hin, W]
+                const float* __restrict__ sum_wref,   // [Hin, W]
+                const float* __restrict__ sum_wref2,  // [Hin, W]
                 const TapShifts sh,
-                float* __restrict__ out,              // [B, H, W, V]
-                int V, int H, int W) {
+                float* __restrict__ out,              // [B, Hin, W, V]
+                int V, int H, int W, int Hin, int y0) {
   extern __shared__ float smem[];
   const int h = sh.halo;
   const int RX = kTX + 2 * h;                 // region: tile and halo
@@ -227,16 +233,16 @@ warp_ncc_kernel(const float* __restrict__ planes,     // [B, H, W, 4]
 
   const int b = blockIdx.x;
   const int x0 = blockIdx.y * kTX;
-  const int y0 = blockIdx.z * kTY;
+  const int y0t = blockIdx.z * kTY;
   const int tid = threadIdx.x;
   const int lx = tid % kTX;
   const int ly = tid / kTX;
   const int x = x0 + lx;
-  const int y = y0 + ly;
-  const bool active = x < W && y < H;
-  const int HW = H * W;
+  const int y = y0t + ly;
+  const bool active = x < W && y < Hin;
+  const int HW = Hin * W;
   const int p = active ? y * W + x : 0;
-  const float* plane = planes + (size_t)b * HW * 4;
+  const float* plane = planes + (size_t)b * Hin * W * 4;
 
   // the reference side of the NCC, in the plain version's order
   const float inv = 1.0f / sum_w[p];
@@ -251,7 +257,8 @@ warp_ncc_kernel(const float* __restrict__ planes,     // [B, H, W, 4]
       const int ry_ = i / RX;
       const int rx_ = i - ry_ * RX;
       float rx, ry, s;
-      ray_plane(plane, cam, wrap(x0 - h + rx_, W), wrap(y0 - h + ry_, H), W,
+      const int yp = wrap(y0t - h + ry_, Hin);
+      ray_plane(plane, cam, wrap(x0 - h + rx_, W), wrap(y0 + yp, H), yp, W,
                 rx, ry, s);
       const int ty = ry_ - h;
       const int tx = rx_ - h;
@@ -311,8 +318,8 @@ warp_ncc_kernel(const float* __restrict__ planes,     // [B, H, W, 4]
   for (int i = tid; i < kTY * run; i += kPix) {
     const int r = i / run;
     const int c = i - r * run;
-    if (y0 + r < H && x0 + c / V < W)
-      o[((size_t)(y0 + r) * W + x0) * V + c] = stage[i];
+    if (y0t + r < Hin && x0 + c / V < W)
+      o[((size_t)(y0t + r) * W + x0) * V + c] = stage[i];
   }
 }
 
@@ -355,7 +362,8 @@ extern "C" int launch_warp_ncc(const float* planes, const float* src,
                                const float* wref_taps, const float* sum_w,
                                const float* sum_wref, const float* sum_wref2,
                                const int32_t* shifts_host, float* out, int B,
-                               int V, int H, int W, void* stream) {
+                               int V, int H, int W, int Hin, int y0,
+                               void* stream) {
   TapShifts sh;
   sh.halo = 0;
   for (int t = 0; t < kTaps; ++t) {
@@ -364,7 +372,8 @@ extern "C" int launch_warp_ncc(const float* planes, const float* src,
     sh.halo = max(sh.halo, max(abs(sh.dx[t]), abs(sh.dy[t])));
   }
   const int bytes = ncc_smem_bytes(V, sh.halo);
-  if (V < 1 || H < 1 || W < 1 || B < 0 || bytes < 0)
+  if (V < 1 || H < 1 || W < 1 || B < 0 || bytes < 0 || Hin < 1 ||
+      Hin > H || y0 <= -H || y0 >= H)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   static bool ready = false;   // the attribute is set once, to the most
@@ -375,9 +384,9 @@ extern "C" int launch_warp_ncc(const float* planes, const float* src,
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  const dim3 grid(B, (W + kTX - 1) / kTX, (H + kTY - 1) / kTY);
+  const dim3 grid(B, (W + kTX - 1) / kTX, (Hin + kTY - 1) / kTY);
   warp_ncc_kernel<<<grid, kPix, bytes, (cudaStream_t)stream>>>(
       planes, src, mats, cam, src_wh, w_taps, wref_taps, sum_w, sum_wref,
-      sum_wref2, sh, out, V, H, W);
+      sum_wref2, sh, out, V, H, W, Hin, y0);
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,9 @@ rank r runs on its own device, with NCCL between cards and gloo on the CPU
 driving several cards would serialise the host's launch stream, which bounds
 the passes.
 
-A ``ViewMesh`` is what a rank knows of the mesh: the process group (None for
-one process), its rank and size along ``views``, and its device.  Every
+A ``ViewMesh`` is what a rank knows of a mesh axis (``views``, or the
+``tile`` axis of the row-tiled pass, tiles.py): the process group (None for
+one process), its rank and size along the axis, and its device.  Every
 collective takes the group explicitly.  ``launch`` starts n ranks with
 ``torch.multiprocessing`` (spawn, never fork) and a rendezvous through a
 file, so no TCP port is fixed; nothing switches backend by itself, so a
@@ -33,7 +34,7 @@ from .. import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ViewMesh:
-    """One rank's view of the ``views`` axis."""
+    """One rank's view of a mesh axis (``views`` or ``tile``)."""
 
     group: Optional[object]      # torch.distributed ProcessGroup, or None
     rank: int

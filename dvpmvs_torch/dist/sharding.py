@@ -119,6 +119,27 @@ def make_batched_pass(static: PMStatic, device):
     return batched
 
 
+def run_views_sharded(static: PMStatic, mesh, ref_imgs, src_imgs, ref_cams,
+                      src_cams, dyns, draws, **kw) -> PassOutput:
+    """Shard a problem-batched pass over ``mesh`` (a ``ViewMesh``) and run
+    this rank's problems (JAX's ``run_views_sharded``: ``shard_problems``,
+    then ``make_batched_pass``).  Takes the whole batch on every rank (B a
+    multiple of the rank count; optional inputs as ``make_batched_pass``
+    names them) and returns the whole batch's PassOutput on every rank,
+    all-gathered in problem order (JAX returns the view-sharded global
+    array)."""
+    fn = make_batched_pass(static, mesh.device)
+    shard = lambda a: (None if a is None
+                       else shard_problems(a, mesh.rank, mesh.size))
+    out = fn(*(shard(a) for a in (ref_imgs, src_imgs, ref_cams, src_cams,
+                                  dyns, draws)),
+             **{k: shard(v) for k, v in kw.items()})
+    return PassOutput(**{
+        f.name: (None if getattr(out, f.name) is None
+                 else all_gather(getattr(out, f.name), mesh.group))
+        for f in dataclasses.fields(PassOutput)})
+
+
 def stack_outputs(outs: Sequence[PassOutput]) -> PassOutput:
     """PassOutputs of single problems as one with a leading problem axis
     (a field that is None in the first is None in the result)."""

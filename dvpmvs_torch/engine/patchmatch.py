@@ -20,6 +20,18 @@ sparse-patch taps where ``anchor_taps`` > 1) at a compacted band-major list
 of the weak pixels of its grid and scatters it over the center-window cost.
 Random draws come from a draw source (``rng.py``) at the full-grid shapes
 of JAX's exact path, under the JAX key paths of the same sites.
+
+With ``rows`` (``engine/rows.py``, the row-tiled pass of ``dist/tiles.py``)
+a rank keeps the whole state and computes the heavy per-pixel stages on its
+window of rows (its own rows, plus a halo on the warp backend, whose taps
+read the costs of neighbouring rows), reading whole tensors at absolute
+coordinates; every stage that commits ends with an exchange of the owned
+rows.  The draws are taken at the whole grid and cut to the window, and the
+weak compaction ranks the whole grid, so the tiled pass equals the untiled
+one bit for bit.  The glue that floods or ranks the whole state
+(nearest-strong flooding, the edge and label distances, the patch
+candidates read at anchors anywhere, the compaction's rank) runs whole on
+every rank and gives every rank the same bits.
 """
 
 from __future__ import annotations
@@ -54,8 +66,10 @@ from ..kernels.weak import (AnchorResult, demote_detail, edge_complexity,
                             edge_ray_distance, find_anchors,
                             label_boundary_distance, patch_candidates,
                             ransac_fit_plane)
+from ..kernels.warp_fused import tap_shifts
 from ..rng import DrawSource, fold_in, split
 from .packing import pack_ctx, pack_parity, unpack_parity
+from .rows import Rows, RowWindow
 from .state import PassOutput, PMState
 
 
@@ -98,20 +112,48 @@ def _initial_cost_refine(ctx: CostContext, plane, sel_views):
     return torch.where(cnt > 0, cost, torch.full_like(cost, COST_MAX)), ok
 
 
+def _packers(win: RowWindow, color: int, use_pk: bool):
+    """(pkw, pkc): the evaluation grid of a whole tensor (its compute rows,
+    checkerboard-packed to ``color`` where ``use_pk``) and of a tensor
+    already on the compute rows."""
+    if use_pk:
+        pkc = lambda a, axis=0: pack_parity(a, color, axis, row0=win.c0)
+    else:
+        pkc = identity_pack
+    return (lambda a, axis=0: pkc(win.take(a, axis), axis)), pkc
+
+
+def _commit(state: PMState, win: RowWindow, mask, plane, cost, sel, vw,
+            use_pk: bool, color: int) -> PMState:
+    """The half-iteration's results (on its evaluation grid) committed where
+    ``mask`` (compute rows) holds, then made whole by the exchange."""
+    cur = [win.take(t) for t in (state.plane, state.cost, state.sel_views,
+                                 state.view_weights)]
+    new = [plane, cost, sel, vw]
+    if use_pk:
+        new = [unpack_parity(n, color, c, win.c0) for n, c in zip(new, cur)]
+    m1 = mask[..., None]
+    out = [win.commit(torch.where(m, n, c))
+           for m, n, c in zip((m1, mask, m1, m1), new, cur)]
+    return state.replace(plane=out[0], cost=out[1], sel_views=out[2],
+                         view_weights=out[3])
+
+
 def _propagate_color_strong(state: PMState, color: int, it: int, path_it,
                             draws: DrawSource, ctx, ctx_pk, ref_cam,
                             src_cams, static: PMStatic, dyn: PMDynamic, xs,
                             ys, rx, ry, ray, parity, edge=None,
-                            edge_dist=None) -> PMState:
-    """One strong half-iteration (one checkerboard color)."""
+                            edge_dist=None, win: Optional[RowWindow] = None
+                            ) -> PMState:
+    """One strong half-iteration (one checkerboard color), computed on the
+    window's compute rows."""
     path_c = fold_in(path_it, color)
     p_view, p_refine = split(path_c, 2, 0), split(path_c, 2, 1)
     H, W = state.cost.shape
+    win = win or RowWindow.whole(H)
+    rows = None if win.is_whole else win
     use_pk = ctx_pk is not None
-    if use_pk:
-        pk1 = lambda a, axis=0: pack_parity(a, color, axis)
-    else:
-        pk1 = identity_pack
+    pk1, pkc = _packers(win, color, use_pk)
     pk = lambda a: pk1(a, 0)
     par = color if use_pk else None
     ctx_c = ctx_pk if use_pk else ctx
@@ -121,11 +163,11 @@ def _propagate_color_strong(state: PMState, color: int, it: int, path_it,
         # the good/bad view-count comparison on their NCC vectors
         (cand1_f, flags1_f, cand2_f, flags2_f,
          differs_f) = select_candidates_edge(state.plane, state.cost, edge,
-                                             edge_dist)
-        prior = pk(neighbor_prior(state.sel_views, flags1_f))
-        cand1, cand2 = pk1(cand1_f, 1), pk1(cand2_f, 1)
-        flags1, flags2 = pk1(flags1_f, 1), pk1(flags2_f, 1)
-        differs = pk1(differs_f, 1)
+                                             edge_dist, rows=rows)
+        prior = pkc(neighbor_prior(state.sel_views, flags1_f, rows))
+        cand1, cand2 = pkc(cand1_f, 1), pkc(cand2_f, 1)
+        flags1, flags2 = pkc(flags1_f, 1), pkc(flags2_f, 1)
+        differs = pkc(differs_f, 1)
         # one 17-plane batch: adaptive(8) + short(8) + current(1)
         cost_all = ncc_cost_batch(
             ctx_c, torch.cat([cand1, cand2, pk(state.plane)[None]]),
@@ -136,9 +178,9 @@ def _propagate_color_strong(state: PMState, color: int, it: int, path_it,
         cur_vec = cost_all[16]
     else:
         cand_f, flags_f, mapc_f = select_candidates(state.plane, state.cost,
-                                                    ray)
-        prior = pk(neighbor_prior(state.sel_views, flags_f))
-        cand_planes, flags = pk1(cand_f, 1), pk1(flags_f, 1)
+                                                    ray, rows=rows)
+        prior = pkc(neighbor_prior(state.sel_views, flags_f, rows))
+        cand_planes, flags = pkc(cand_f, 1), pkc(flags_f, 1)
         cost_all = ncc_cost_batch(
             ctx_c, torch.cat([cand_planes, pk(state.plane)[None]]),
             parity=par)
@@ -147,15 +189,15 @@ def _propagate_color_strong(state: PMState, color: int, it: int, path_it,
         if static.extend_rounds > 0:
             # extended far propagation (APD.cu:1385-1895): strict-<
             # replacement, fresh NCC for the replaced candidates
-            mapc = pk1(mapc_f, 1)
+            mapc = pkc(mapc_f, 1)
             active = flags
             for e in range(min(static.extend_rounds, 3)):
                 active = judge_extend(it, e, cost_array, active)
                 ext_f, ext_ok_f, ext_map_f = select_candidates(
-                    state.plane, state.cost, ray, extend_round=e)
-                ext_p = pk1(ext_f, 1)
-                ext_ok = pk1(ext_ok_f, 1)
-                ext_map = pk1(ext_map_f, 1)
+                    state.plane, state.cost, ray, extend_round=e, rows=rows)
+                ext_p = pkc(ext_f, 1)
+                ext_ok = pkc(ext_ok_f, 1)
+                ext_map = pkc(ext_map_f, 1)
                 rep = active & ext_ok & (ext_map < mapc)
                 cand_planes = torch.where(rep[..., None], ext_p, cand_planes)
                 mapc = torch.where(rep, ext_map, mapc)
@@ -215,28 +257,18 @@ def _propagate_color_strong(state: PMState, color: int, it: int, path_it,
         plane_new = plane_now
         cost_new = cost_now
 
-    if use_pk:
-        plane_new = unpack_parity(plane_new, color, state.plane)
-        cost_new = unpack_parity(cost_new, color, state.cost)
-        sel_now = unpack_parity(sel_now, color, state.sel_views)
-        view_weights = unpack_parity(view_weights, color,
-                                     state.view_weights)
-
-    mask = (parity == color) & (state.weak != PixelState.WEAK)
-    m1 = mask[..., None]
-    return state.replace(
-        plane=torch.where(m1, plane_new, state.plane),
-        cost=torch.where(mask, cost_new, state.cost),
-        sel_views=torch.where(m1, sel_now, state.sel_views),
-        view_weights=torch.where(m1, view_weights, state.view_weights),
-    )
+    mask = ((win.take(parity) == color)
+            & (win.take(state.weak) != PixelState.WEAK))
+    return _commit(state, win, mask, plane_new, cost_new, sel_now,
+                   view_weights, use_pk, color)
 
 
-def _geom_batch(gctx, planes, xs, ys, ref_cam, parity=None):
+def _geom_batch(gctx, planes, xs, ys, ref_cam, parity=None, y0=0):
     """Geom cost of K candidate plane fields [K, H', W', 4] -> [K, H', W',
-    V] through K3 (dense, or one checkerboard color with ``parity``)."""
+    V] through K3 (dense, or one checkerboard color with ``parity``; the
+    H' rows from image row ``y0``)."""
     depths = depth_from_plane(planes, xs, ys, ref_cam)
-    return geom_cost(gctx, depths.contiguous(), parity=parity)
+    return geom_cost(gctx, depths.contiguous(), parity=parity, y0=y0)
 
 
 _BAND_LANES = 128   # compaction band width (packed columns)
@@ -247,6 +279,22 @@ def _weak_budget(SZ: int, frac: float) -> int:
     a multiple of 128, at least 128, at most the grid."""
     K_w = max(-(-int(SZ * frac) // 128) * 128, 128)
     return min(K_w, SZ)
+
+
+def _window_entries(flat_idx, ok_k, Wc: int, win: RowWindow, SZ: int):
+    """The entries of a whole-grid compaction that lie on the window's
+    compute rows, in their order, as indices into the compute rows' grid
+    (``Wc`` columns, ``SZ`` pixels; SZ for the one empty entry of a window
+    that holds none)."""
+    lr = torch.remainder(flat_idx // Wc - win.c0, win.H)
+    keep = ok_k & (lr < win.hc)
+    sel = torch.nonzero(keep)[:, 0]
+    local = lr * Wc + flat_idx % Wc
+    if sel.numel() == 0:
+        return (torch.full((1,), SZ, dtype=flat_idx.dtype,
+                           device=flat_idx.device),
+                torch.zeros((1,), dtype=torch.bool, device=flat_idx.device))
+    return local[sel], keep[sel]
 
 
 def _band_compact(weak_pk: torch.Tensor, K_w: int):
@@ -288,8 +336,8 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
                           ctx, ctx_pk, ctx_yzl, ctx_yzl_pk, gctx, ref_img,
                           ref_cam, src_cams, static: PMStatic,
                           dyn: PMDynamic, xs, ys, rx, ry,
-                          parity, tap_fields=None, patch_off=None
-                          ) -> PMState:
+                          parity, tap_fields=None, patch_off=None,
+                          win: Optional[RowWindow] = None) -> PMState:
     """One weak half-iteration (CheckerboardPropagationWeak,
     APD.cu:2739-3089).
 
@@ -304,18 +352,18 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
     computed: JAX's weak-tile skip changes no result.  With
     ``exact_deformable`` (and ``patch_off``) every slot and every proposal
     takes the reference-exact 9-tap cost (``deformable_cost_exact``) on the
-    full grid."""
+    full grid.  Everything is computed on the window's compute rows; the
+    anchors and the fit plane come on them."""
     H, W = ref_img.shape
     V = ctx.num_views
+    win = win or RowWindow.whole(H)
     path_c = fold_in(fold_in(path_it, color), 7)
     p_view, p_refine = split(path_c, 2, 0), split(path_c, 2, 1)
     exact = static.exact_deformable and patch_off is not None
     use_pk = ctx_pk is not None and not exact
-    if use_pk:
-        pk1 = lambda a, axis=0: pack_parity(a, color, axis)
-    else:
-        pk1 = identity_pack
+    pk1, pkc = _packers(win, color, use_pk)
     pk = lambda a: pk1(a, 0)
+    rows = None if win.is_whole else win
     par = color if use_pk else None
     ctx_c = ctx_pk if use_pk else ctx
     ctx_yzl_c = ctx_yzl_pk if use_pk else ctx_yzl
@@ -325,21 +373,28 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
         def deform(planes):
             return torch.stack([deformable_cost_exact(
                 ctx_yzl, p, anchors, patch_off, state.sel_views, ref_img,
-                dyn.sigma_color) for p in planes])
+                dyn.sigma_color, rows=rows, rays=(rx, ry)) for p in planes])
     else:
         # weak-pixel compaction: the anchor term only matters where a weak
         # pixel can commit, so it runs on a fixed-size list of them
-        weak_pk = pk(state.weak == PixelState.WEAK)
-        SZ = weak_pk.numel()
-        K_w = _weak_budget(SZ, static.weak_budget_frac)
+        # (ranked over the whole grid, so the budget and its overflow are
+        # the untiled pass's; a row window keeps its own entries)
+        weak_all = state.weak == PixelState.WEAK
+        weak_pk = pack_parity(weak_all, color) if use_pk else weak_all
+        K_w = _weak_budget(weak_pk.numel(), static.weak_budget_frac)
         flat_idx, ok_k = _band_compact(weak_pk, K_w)
+        ref_ev = pk(ref_img)
+        SZ = ref_ev.numel()
+        if rows is not None:
+            flat_idx, ok_k = _window_entries(flat_idx, ok_k,
+                                             weak_pk.shape[1], win, SZ)
         gidx = torch.clamp(flat_idx, max=SZ - 1)
         af_k = anchor_fields_at(ctx_yzl, anchors, state.sel_views, ref_img,
-                                dyn.sigma_color, pk1, gidx)
+                                dyn.sigma_color, pkc, gidx, ref_eval=ref_ev)
         tap_w = None
         if tap_fields is not None:
             # one gather at the compacted anchors serves every per-view tap
-            ref_c_k = pk(ref_img).reshape(-1)[gidx]
+            ref_c_k = ref_ev.reshape(-1)[gidx]
             tap_w = gather_tap_words(tap_fields, af_k, ref_c_k,
                                      dyn.sigma_color, W,
                                      static.anchor_taps - 1)
@@ -372,14 +427,14 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
     # candidates: the first 8 anchors' planes (APD.cu:2768-2779)
     a8_x = torch.clamp(anchors.coords[:8, ..., 0], 0, W - 1)
     a8_y = torch.clamp(anchors.coords[:8, ..., 1], 0, H - 1)
-    idx8 = pk1(a8_y * W + a8_x, 1).to(torch.int64)         # [8, H', W']
+    idx8 = pkc(a8_y * W + a8_x, 1).to(torch.int64)         # [8, H', W']
     cand_planes = state.plane.reshape(-1, 4)[idx8]         # [8, H', W', 4]
-    flags = pk1(anchors.valid[:8], 1)
+    flags = pkc(anchors.valid[:8], 1)
 
     xs_c, ys_c, rx_c, ry_c = pk(xs), pk(ys), pk(rx), pk(ry)
     plane_cur = pk(state.plane)
     sel_cur = pk(state.sel_views)
-    fit_c = pk(fit_plane)
+    fit_c = pkc(fit_plane)
 
     # one batched deformable evaluation: 8 candidates + current + fit
     slot_planes = torch.cat([cand_planes, plane_cur[None], fit_c[None]])
@@ -403,7 +458,7 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
     if gctx is not None:
         # missing anchors cost geom_factor * 3 (APD.cu:2857-2868)
         g10 = _geom_batch(gctx, slot_planes, xs_c, ys_c, ref_cam,
-                          parity=par)
+                          parity=par, y0=win.c0)
         g8 = torch.where(flags[..., None], g10[:8],
                          torch.full_like(g10[:8], 3.0))
         cost_array = cost_array + dyn.geom_factor * g8
@@ -455,7 +510,7 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
         ref_vec = scatter_blend(ref_centers, rk)
     if gctx is not None:
         ref_vec = ref_vec + dyn.geom_factor * _geom_batch(
-            gctx, ref_planes, xs_c, ys_c, ref_cam, parity=par)
+            gctx, ref_planes, xs_c, ys_c, ref_cam, parity=par, y0=win.c0)
     ref_costs = weighted_cost(ref_vec, view_weights[None], weight_norm[None])
     ref_depths = depth_from_plane(ref_planes, xs_c, ys_c, ref_cam)
     ref_ok = (ref_depths >= dyn.depth_min) & (ref_depths <= dyn.depth_max)
@@ -479,21 +534,10 @@ def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
     final_vec = ncc_cost(ctx_c, plane_new, parity=par)
     cost_final = weighted_cost(final_vec, view_weights, weight_norm)
 
-    if use_pk:
-        plane_new = unpack_parity(plane_new, color, state.plane)
-        cost_final = unpack_parity(cost_final, color, state.cost)
-        sel_now = unpack_parity(sel_now, color, state.sel_views)
-        view_weights = unpack_parity(view_weights, color,
-                                     state.view_weights)
-
-    mask = (parity == color) & (state.weak == PixelState.WEAK)
-    m1 = mask[..., None]
-    return state.replace(
-        plane=torch.where(m1, plane_new, state.plane),
-        cost=torch.where(mask, cost_final, state.cost),
-        sel_views=torch.where(m1, sel_now, state.sel_views),
-        view_weights=torch.where(m1, view_weights, state.view_weights),
-    )
+    mask = ((win.take(parity) == color)
+            & (win.take(state.weak) == PixelState.WEAK))
+    return _commit(state, win, mask, plane_new, cost_final, sel_now,
+                   view_weights, use_pk, color)
 
 
 def _weak_overflow(weak, static: PMStatic) -> torch.Tensor:
@@ -515,6 +559,19 @@ def _weak_overflow(weak, static: PMStatic) -> torch.Tensor:
     return torch.clamp(over, min=0).to(torch.int32)
 
 
+def _halo(static: PMStatic) -> int:
+    """The rows a row window of the pass computes beyond its own on each
+    side: none, but on the warp backend, whose taps read the costs of the
+    rows within the largest tap shift, the shift times the longest chain of
+    cost batches one commit depends on (the strong half: its candidates,
+    up to three extension rounds and the refinement; the weak half: its
+    slots, the refinement and the final re-cost)."""
+    if static.cost_backend != "warp":
+        return 0
+    shift = int(np.abs(tap_shifts(static.strong_radius)).max())
+    return shift * max(2 + min(static.extend_rounds, 3), 3)
+
+
 def run_pass(
     ref_img,                       # [H, W] grayscale 0..255
     src_imgs,                      # [V, H, W]
@@ -531,10 +588,13 @@ def run_pass(
     edge=None,                     # [H, W] edge mask
     label=None,                    # [H, W] int labels
     device=None,
+    rows: Optional[Rows] = None,
 ) -> PassOutput:
     """Run one PatchMatch pass for a reference view on ``device`` (the card
     unless the caller asks for the CPU).  ``draws`` returns its numbers on
-    that device."""
+    that device.  With ``rows`` this rank computes its rows of a row-tiled
+    pass (``dist/tiles.py``) and returns the whole output, as every rank
+    of it does."""
     dev = resolve_device(device)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     ref_img = f32(ref_img)
@@ -550,12 +610,17 @@ def run_pass(
     parity = (xs.to(torch.int32) + ys.to(torch.int32)) % 2
     if radius_map is not None:
         radius_map = f32(radius_map)
+    win = (RowWindow.whole(H) if rows is None
+           else RowWindow(H, rows, _halo(static)))
+    rw = None if win.is_whole else win      # a row window, or the image
+    take = win.take
 
     ctx = build_cost_context(
         ref_img, src_imgs, ref_cam, src_cams,
         sigma_spatial=dyn.sigma_spatial, sigma_color=dyn.sigma_color,
         radius_map=radius_map if static.use_radius else None,
-        strong_radius=static.strong_radius, backend=static.cost_backend)
+        strong_radius=static.strong_radius, backend=static.cost_backend,
+        rows=win)
     # checkerboard-packed context views for the half-iteration batches
     ctx_pks = ((pack_ctx(ctx, 0), pack_ctx(ctx, 1))
                if static.cost_backend == "fused" else (None, None))
@@ -595,7 +660,7 @@ def run_pass(
             ref_img, src_imgs, ref_cam, src_cams,
             sigma_spatial=dyn.sigma_spatial, sigma_color=dyn.sigma_color,
             strong_radius=static.strong_radius, backend=static.cost_backend,
-            color_only_weights=True)
+            color_only_weights=True, rows=win)
         if static.cost_backend == "fused":
             ctx_yzl_pks = (pack_ctx(ctx_yzl, 0), pack_ctx(ctx_yzl, 1))
         if static.use_edge and edge is not None:
@@ -608,26 +673,34 @@ def run_pass(
                 label if static.use_label and label is not None else None)
 
     # ---- initialization (RandomInitialization, APD.cu:1273-1309) ----
+    # (on the compute rows, then exchanged: a row window's exchange makes
+    # the state whole on every rank)
     if static.state == RunState.FIRST_INIT:
-        rand_d = random_depth(draws, split(k_init, 2, 0), (H, W),
-                              dyn.depth_min, dyn.depth_max)
+        rand_d = take(random_depth(draws, split(k_init, 2, 0), (H, W),
+                                   dyn.depth_min, dyn.depth_max))
         rand_n = visibility_prior_normal(draws, split(k_init, 2, 1), rand_d,
-                                         sel_views, rx, ry, ref_cam,
-                                         src_cams)
-        plane = plane_from_normal_depth(rand_n, rand_d, xs, ys, ref_cam)
+                                         take(sel_views), take(rx), take(ry),
+                                         ref_cam, src_cams, full_hw=(H, W),
+                                         pk=take)
+        plane = plane_from_normal_depth(rand_n, rand_d, take(xs), take(ys),
+                                        ref_cam)
         if init_plane_world is not None:
-            init_plane_world = f32(init_plane_world)
+            init_plane_world = take(f32(init_plane_world))
             prior_d = init_plane_world[..., 3]
             ok = (prior_d >= dyn.depth_min) & (prior_d <= dyn.depth_max)
-            prior_plane = plane_from_world(init_plane_world, xs, ys, ref_cam)
+            prior_plane = plane_from_world(init_plane_world, take(xs),
+                                           take(ys), ref_cam)
             plane = torch.where(ok[..., None], prior_plane, plane)
         cost, sel_views = _initial_cost_first(ctx, plane, static.top_k)
+        plane = win.commit(plane)
     else:
         if init_plane_world is None or init_sel_views is None:
             raise ValueError("REFINE passes need init_plane_world and "
                              "init_sel_views")
         plane = plane_from_world(f32(init_plane_world), xs, ys, ref_cam)
-        cost, sel_views = _initial_cost_refine(ctx, plane, sel_views)
+        cost, sel_views = _initial_cost_refine(ctx, take(plane),
+                                               take(sel_views))
+    cost, sel_views = win.commit(cost), win.commit(sel_views)
 
     # anchor generation (GenNeighbours + NeigbourUpdate)
     weak_overflow = tap_fields = patch_off = None
@@ -652,10 +725,11 @@ def run_pass(
             ransac_threshold=dyn.ransac_threshold, depth_range=depth_range,
             use_limit=static.use_limit,
             label=label if static.use_label else None,
-            label_dist=label_dist)
-        weak = torch.where((weak == PixelState.WEAK) & ~anchors.reliable,
-                           torch.full_like(weak, int(PixelState.UNKNOWN)),
-                           weak)
+            label_dist=label_dist, rows=rw)
+        weak_c = take(weak)
+        weak = win.commit(torch.where(
+            (weak_c == PixelState.WEAK) & ~anchors.reliable,
+            torch.full_like(weak_c, int(PixelState.UNKNOWN)), weak_c))
         if not static.exact_deformable:
             weak_overflow = _weak_overflow(weak, static)
 
@@ -670,39 +744,43 @@ def run_pass(
             state = _propagate_color_strong(
                 state, color, it, path_it, draws, ctx, ctx_pks[color],
                 ref_cam, src_cams, static, dyn, xs, ys, rx, ry, ray, parity,
-                edge=edge, edge_dist=edge_dist)
+                edge=edge, edge_dist=edge_dist, win=win)
         if use_apd:
             fit_plane, new_radius = ransac_fit_plane(
                 anchors, state.plane, state.weak, ref_cam, draws,
                 fold_in(path_it, 3), use_radius=static.use_radius,
                 strong_radius=static.strong_radius, edge_dist=edge_dist,
-                label_dist=label_dist)
+                label_dist=label_dist, rows=rw)
             if static.use_radius and new_radius is not None:
-                state = state.replace(radius=torch.where(
-                    state.weak == PixelState.WEAK, new_radius, state.radius))
+                state = state.replace(radius=win.commit(torch.where(
+                    take(state.weak) == PixelState.WEAK, new_radius,
+                    take(state.radius))))
             for color in (0, 1):
                 state = _propagate_color_weak(
                     state, anchors, fit_plane, color, it, path_it, draws,
                     ctx, ctx_pks[color], ctx_yzl, ctx_yzl_pks[color], gctx,
                     ref_img, ref_cam, src_cams, static, dyn, xs, ys, rx, ry,
-                    parity, tap_fields=tap_fields, patch_off=patch_off)
+                    parity, tap_fields=tap_fields, patch_off=patch_off,
+                    win=win)
 
     # ---- post: depth/normal extraction + filters ----
     depth = depth_from_plane(state.plane, xs, ys, ref_cam)
     normal_ref = state.plane[..., :3]
-    depth = median_filter_depth(depth, state.weak, state.cost)
+    depth = median_filter_depth(depth, state.weak, state.cost, rows=rw)
     weak_new = depth_to_weak(
         ctx, gctx, dyn.geom_factor, normal_ref, depth, state.sel_views,
         state.view_weights, xs, ys, ref_cam, src_cams,
         dyn.depth_min, dyn.depth_max, dyn.weak_peak_radius,
-        return_curve=static.debug_dumps)
+        return_curve=static.debug_dumps, rows=rw)
     cost_line = None
     if static.debug_dumps:
         weak_new, cost_line = weak_new
-    depth = local_refine(
+        cost_line = win.commit(cost_line, 1)
+    weak_new = win.commit(weak_new)
+    depth = win.commit(local_refine(
         ctx, gctx, dyn.geom_factor, normal_ref, depth, state.sel_views,
         state.view_weights, xs, ys, ref_cam, src_cams,
-        dyn.depth_min, dyn.depth_max)
+        dyn.depth_min, dyn.depth_max, rows=rw))
 
     # host-extraction semantics (main.cpp:300-308): out-of-range -> 0/UNKNOWN
     in_range = (depth >= dyn.depth_min) & (depth <= dyn.depth_max)
@@ -719,8 +797,8 @@ def run_pass(
     if static.debug_dumps:
         dbg["cost_line"] = cost_line
         if use_apd:
-            dbg["anchors_xy"] = anchors.coords
-            dbg["anchors_valid"] = anchors.valid
+            dbg["anchors_xy"] = win.commit(anchors.coords, 1)
+            dbg["anchors_valid"] = win.commit(anchors.valid, 1)
     return PassOutput(depth=depth, normal_world=normal_world,
                       cost=state.cost, weak=weak_new,
                       sel_views=state.sel_views,

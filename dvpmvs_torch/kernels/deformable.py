@@ -207,10 +207,13 @@ def unpack_tap_word(word: torch.Tensor):
 
 def anchor_fields_at(ctx: CostContext, anchors: AnchorResult,
                      sel_views: torch.Tensor, ref_img: torch.Tensor,
-                     sigma_color, pk, gidx: torch.Tensor) -> AnchorFields:
+                     sigma_color, pk, gidx: torch.Tensor,
+                     ref_eval=None) -> AnchorFields:
     """AnchorFields at compacted evaluation-grid indices ``gidx`` [K] into
-    the flattened grid that ``pk(arr, axis)`` packs to (one checkerboard
-    color, or the identity for the full grid)."""
+    the flattened grid that ``pk(arr, axis)`` packs ``anchors``' fields to
+    (one checkerboard color, or the identity for the full grid).
+    ``ref_eval`` is the reference image on that grid (``pk(ref_img, 0)`` by
+    default; a row window of the tiled pass gives its own)."""
     H, W = ref_img.shape
     V = ctx.num_views
     gidx = gidx.to(torch.int64)
@@ -220,7 +223,8 @@ def anchor_fields_at(ctx: CostContext, anchors: AnchorResult,
     valid = flatk(pk(anchors.valid, 1))
     idx = (ay * W + ax).to(torch.int64)
     ref_a = ref_img.reshape(-1)[idx]
-    ref_c = pk(ref_img, 0).reshape(-1)[gidx]
+    ref_c = (pk(ref_img, 0) if ref_eval is None
+             else ref_eval).reshape(-1)[gidx]
     sc = torch.as_tensor(sigma_color, dtype=torch.float32,
                          device=ref_img.device)
     w_col = fmath.exp(-torch.abs(ref_a - ref_c[None]) / (2.0 * sc * sc))
@@ -362,7 +366,7 @@ def anchor_cost_term_for_plane(ctx: CostContext, plane_field: torch.Tensor,
 def deformable_cost_exact(ctx_yzl: CostContext, plane_candidate: torch.Tensor,
                           anchors: AnchorResult, patch_off: torch.Tensor,
                           sel_views: torch.Tensor, ref_img: torch.Tensor,
-                          sigma_color) -> torch.Tensor:
+                          sigma_color, rows=None, rays=None) -> torch.Tensor:
     """EXACT ``ComputeBilateralNCCNew`` (APD.cu:835-1021): per anchor and
     per view a 9-tap sparse-patch NCC with the anchor's per-view candidate
     offsets (``patch_off`` [V, 8, H, W, 2], ``patch_candidates``), every tap
@@ -374,14 +378,21 @@ def deformable_cost_exact(ctx_yzl: CostContext, plane_candidate: torch.Tensor,
 
     The gathers of a view run batched over taps and anchors ([9, A, H, W]);
     the sums keep JAX's order: taps k = 0..8 in sequence into the six
-    moment sums, anchors a = 0..A-1 in sequence into the cost sum."""
+    moment sums, anchors a = 0..A-1 in sequence into the cost sum.
+
+    With ``rows`` (an ``engine.rows.RowWindow``) the evaluated pixels are
+    its compute rows (``ctx_yzl``, ``plane_candidate`` and ``anchors`` on
+    them) and ``rays`` the whole (rx, ry) grids that the taps read."""
     H, W = ref_img.shape
     V = ctx_yzl.num_views
     dev = ref_img.device
     sc = torch.as_tensor(sigma_color, dtype=torch.float32, device=dev)
     q = slot_q(plane_candidate)                             # [H, W, 3]
     q0, q1, q2 = q[..., 0], q[..., 1], q[..., 2]
-    rx_f, ry_f = ctx_yzl.rx.reshape(-1), ctx_yzl.ry.reshape(-1)
+    rx_f, ry_f = rays if rays is not None else (ctx_yzl.rx, ctx_yzl.ry)
+    rx_f, ry_f = rx_f.reshape(-1), ry_f.reshape(-1)
+    ref_eval = ref_img if rows is None else rows.take(ref_img)
+    Hc = ref_eval.shape[0]
 
     def warp(v, tidx):
         """Source position of the ref pixels ``tidx`` under the evaluated
@@ -406,7 +417,7 @@ def deformable_cost_exact(ctx_yzl: CostContext, plane_candidate: torch.Tensor,
     fb = torch.as_tensor(TAP_FALLBACK, dtype=torch.int64, device=dev)
     fb_i = fb[:, 0].reshape(8, 1, 1, 1)
     fb_j = fb[:, 1].reshape(8, 1, 1, 1)
-    zero = torch.zeros((1, A, H, W), dtype=torch.int64, device=dev)
+    zero = torch.zeros((1, A, Hc, W), dtype=torch.int64, device=dev)
     ref_f = ref_img.reshape(-1)
     center = ncc_cost(ctx_yzl, plane_candidate)             # [H, W, V]
 
@@ -426,7 +437,7 @@ def deformable_cost_exact(ctx_yzl: CostContext, plane_candidate: torch.Tensor,
         ref_pix = ref_f[tidx]
         px, py, _ = warp(v, tidx)
         src_pix = bilinear_sample(ctx_yzl.src_imgs[v], px, py)
-        wgt = fmath.exp(-torch.abs(ref_pix - ref_img) / (2.0 * sc * sc))
+        wgt = fmath.exp(-torch.abs(ref_pix - ref_eval) / (2.0 * sc * sc))
         wr = wgt * ref_pix
         ws = wgt * src_pix
         terms = torch.stack([wr, wr * ref_pix, ws, ws * src_pix,

@@ -27,25 +27,44 @@ from .ncc_fused import eval_coords
 _NAME = "geom"
 
 
-def parity_context(gctx: GeomContext, parity: int) -> GeomContext:
+def parity_context(gctx: GeomContext, parity: int, y0: int = 0,
+                   Hp: int = 0) -> GeomContext:
     """``gctx`` with its per-pixel coordinate fields on one checkerboard
     color (x = 2 i + (y + parity) % 2, computed, not packed, so that the
-    padding column of an odd width sits at x = W as in the kernel)."""
+    padding column of an odd width sits at x = W as in the kernel), for
+    the Hp image rows from ``y0`` (all of them by default)."""
     H, W = gctx.xs.shape
-    xs, ys = eval_coords(H, (W + 1) // 2, parity, gctx.xs.device)
+    xs, ys = eval_coords(Hp or H, (W + 1) // 2, parity, gctx.xs.device, y0)
     ref_K = gctx.ref_K
     return dataclasses.replace(gctx, xs=xs, ys=ys,
                                rx=(xs - ref_K[0, 2]) / ref_K[0, 0],
                                ry=(ys - ref_K[1, 2]) / ref_K[1, 1])
 
 
+def row_context(gctx: GeomContext, y0: int, Hp: int) -> GeomContext:
+    """``gctx`` with its per-pixel coordinate fields on the image rows
+    (y0 + j) mod H, j < Hp."""
+    H = gctx.xs.shape[0]
+    if y0 == 0 and Hp == H:
+        return gctx
+    rows = torch.remainder(torch.arange(y0, y0 + Hp, device=gctx.xs.device),
+                           H)
+    take = lambda a: a.index_select(0, rows)
+    return dataclasses.replace(gctx, xs=take(gctx.xs), ys=take(gctx.ys),
+                               rx=take(gctx.rx), ry=take(gctx.ry))
+
+
 def geom_cost_plain(gctx: GeomContext, depth_stack: torch.Tensor,
                     vweights: Optional[torch.Tensor] = None,
                     fold: bool = False, chunk: int = 8,
-                    parity: Optional[int] = None) -> torch.Tensor:
+                    parity: Optional[int] = None, y0: int = 0
+                    ) -> torch.Tensor:
     """The plain version of K3: same arguments, same result."""
+    Hp = depth_stack.shape[1]
     if parity is not None:
-        gctx = parity_context(gctx, parity)
+        gctx = parity_context(gctx, parity, y0, Hp)
+    else:
+        gctx = row_context(gctx, y0, Hp)
     outs = []
     for k0 in range(0, depth_stack.shape[0], chunk):
         c = geom_consistency_cost(gctx, depth_stack[k0:k0 + chunk])
@@ -60,28 +79,31 @@ def geom_cost_plain(gctx: GeomContext, depth_stack: torch.Tensor,
 
 def geom_cost(gctx: GeomContext, depth_stack: torch.Tensor,
               vweights: Optional[torch.Tensor] = None,
-              fold: bool = False, parity: Optional[int] = None
-              ) -> torch.Tensor:
-    """Geom costs of K candidate depth fields depth_stack [K, H, W'].
+              fold: bool = False, parity: Optional[int] = None,
+              y0: int = 0) -> torch.Tensor:
+    """Geom costs of K candidate depth fields depth_stack [K, H', W'].
 
-    Returns [K, H, W', V], or with ``fold`` the ``vweights`` ([H, W, V])
-    weighted sum over views [K, H, W].  W' is W, or ceil(W/2) with
-    ``parity`` 0/1 (one checkerboard color; per view only)."""
+    Returns [K, H', W', V], or with ``fold`` the ``vweights`` ([H', W, V])
+    weighted sum over views [K, H', W].  W' is W, or ceil(W/2) with
+    ``parity`` 0/1 (one checkerboard color; per view only).  The H' rows
+    are image rows (y0 + j) mod H: the whole image by default, a row window
+    of the tiled pass otherwise."""
     V, H, W = gctx.src_depths.shape
-    K = depth_stack.shape[0]
+    K, Hp = depth_stack.shape[:2]
     if parity not in (None, 0, 1):
         raise ValueError("geom_cost: parity must be None, 0 or 1")
     if parity is not None and fold:
         raise ValueError("geom_cost: the parity mode is per view only")
     Wp = W if parity is None else (W + 1) // 2
-    if tuple(depth_stack.shape[1:]) != (H, Wp):
-        raise ValueError(f"geom_cost: depth_stack must be [K, {H}, {Wp}], "
-                         f"got {tuple(depth_stack.shape)}")
-    if fold and (vweights is None or tuple(vweights.shape) != (H, W, V)):
-        raise ValueError("geom_cost: fold needs vweights [H, W, V]")
+    if depth_stack.shape[2] != Wp or Hp > H or not -H < y0 < H:
+        raise ValueError(f"geom_cost: depth_stack must be [K, <= {H}, "
+                         f"{Wp}] with y0 in ({-H}, {H}), got "
+                         f"{tuple(depth_stack.shape)} and {y0}")
+    if fold and (vweights is None or tuple(vweights.shape) != (Hp, W, V)):
+        raise ValueError("geom_cost: fold needs vweights [H', W, V]")
     if depth_stack.device.type == "cpu":
         return geom_cost_plain(gctx, depth_stack, vweights, fold,
-                               parity=parity)
+                               parity=parity, y0=y0)
     if depth_stack.device.type != "cuda":
         raise ValueError(f"geom_cost: unsupported device "
                          f"{depth_stack.device}")
@@ -96,18 +118,18 @@ def geom_cost(gctx: GeomContext, depth_stack: torch.Tensor,
     vw = torch.movedim(vweights, -1, 0).contiguous() if fold else None
     _build.require_cuda_inputs(_NAME, [depths, gctx.src_depths, vw],
                                depths.device)
-    shape = (K, H, Wp) if fold else (K, H, Wp, V)
+    shape = (K, Hp, Wp) if fold else (K, Hp, Wp, V)
     out = torch.empty(shape, dtype=torch.float32, device=depths.device)
     fn = _build.library(_NAME).launch_geom
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     P = _build.ptr
     # cams is read on the host when the kernel is launched (a by-value
     # launch argument), so it may be freed right after
     err = fn(P(depths), P(gctx.src_depths), P(cams), P(vw), P(out),
-             K, V, H, W, Wp, -1 if parity is None else int(parity),
-             ctypes.c_void_p(_build.stream_ptr(depths)))
+             K, V, H, W, Wp, -1 if parity is None else int(parity), Hp,
+             int(y0), ctypes.c_void_p(_build.stream_ptr(depths)))
     _build.check(err, _NAME, "fold" if fold else
                  "per view" if parity is None else "parity")
     return out

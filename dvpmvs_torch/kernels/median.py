@@ -3,7 +3,8 @@
 APD.cu:3184-3328): a 21-tap median over the center, cross arms at
 +-1/+-3/+-5 and eight knight taps, restricted to STRONG neighbors, applied
 to non-WEAK pixels unless their cost is < 0.001.  Black then red (red sees
-black-filtered depths).
+black-filtered depths).  On a row window of the tiled pass each color
+filters the window's rows against the whole depth map, then exchanges them.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from ..config import PixelState
 from .gatherfree import take0
-from .propagation import _in_bounds_mask, shift_map
+from .propagation import _in_bounds_mask, shift_rows
 
 _TAPS = [(0, 0),
          (0, -1), (0, -3), (0, -5), (0, 1), (0, 3), (0, 5),
@@ -35,26 +36,34 @@ def _masked_median(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def median_filter_depth(depth: torch.Tensor, weak: torch.Tensor,
-                        cost: torch.Tensor) -> torch.Tensor:
-    """Two-color checkerboard 21-tap median of the depth map."""
+                        cost: torch.Tensor, rows=None) -> torch.Tensor:
+    """Two-color checkerboard 21-tap median of the depth map [H, W]; with
+    ``rows`` (an ``engine.rows.RowWindow``) each color filters the compute
+    rows and ``rows.commit`` makes the map whole again."""
     H, W = depth.shape
     dev = depth.device
+    take = (lambda a: a) if rows is None else rows.take
+    Hc = H if rows is None else rows.hc
     xs = torch.arange(W, device=dev)[None, :]
-    ys = torch.arange(H, device=dev)[:, None]
+    ys = (torch.arange(H, device=dev) if rows is None
+          else rows.row_ids(dev))[:, None]
     parity = (xs + ys) % 2
     strong = weak == PixelState.STRONG
-    eligible = (weak != PixelState.WEAK) & (cost >= 0.001)
+    eligible = (take(weak) != PixelState.WEAK) & (take(cost) >= 0.001)
 
     valid = []
     for (dx, dy) in _TAPS:
         if dx == 0 and dy == 0:
-            valid.append(torch.ones((H, W), dtype=torch.bool, device=dev))
+            valid.append(torch.ones((Hc, W), dtype=torch.bool, device=dev))
         else:
-            valid.append(_in_bounds_mask(H, W, dx, dy, dev)
-                         & shift_map(strong, dx, dy))
+            valid.append(_in_bounds_mask(H, W, dx, dy, dev, rows)
+                         & shift_rows(strong, dx, dy, rows))
     valid = torch.stack(valid)
     for color in (0, 1):
-        vals = torch.stack([shift_map(depth, dx, dy) for (dx, dy) in _TAPS])
+        vals = torch.stack([shift_rows(depth, dx, dy, rows)
+                            for (dx, dy) in _TAPS])
         med = _masked_median(vals, valid)
-        depth = torch.where(eligible & (parity == color), med, depth)
+        filtered = torch.where(eligible & (parity == color), med,
+                               take(depth))
+        depth = filtered if rows is None else rows.commit(filtered)
     return depth

@@ -115,6 +115,9 @@ class CostContext:
     strong_radius: int = 5
     has_radius_map: bool = False
     color_only: bool = False
+    # the image row of the per-pixel fields' first row: a row window of the
+    # tiled pass holds the fields of its compute rows only
+    y0: int = 0
 
     @property
     def num_views(self) -> int:
@@ -148,21 +151,31 @@ def build_cost_context(
     src_wh: Optional[torch.Tensor] = None,
     backend: str = "exact",
     color_only_weights: bool = False,
+    rows=None,
 ) -> CostContext:
     """Precompute everything the candidate loop reuses.
 
     ``src_cams`` carries a leading [V] axis.  ``radius_map`` ([H, W]) enables
-    the adaptive window; zeros fall back to ``strong_radius``.
+    the adaptive window; zeros fall back to ``strong_radius``.  With
+    ``rows`` (an ``engine.rows.RowWindow``) the per-pixel fields are those
+    of its compute rows, read from the whole reference image.
     """
     H, W = ref_img.shape
     dev = ref_img.device
     xs, ys = _grid(H, W, dev)
+    ref_c, row_ids, y0 = ref_img, torch.arange(H, device=dev), 0
+    if rows is not None:
+        xs, ys, ref_c = rows.take(xs), rows.take(ys), rows.take(ref_img)
+        row_ids, y0 = rows.row_ids(dev), rows.c0
+        if radius_map is not None:
+            radius_map = rows.take(radius_map)
+    Hc = xs.shape[0]
     rx = (xs - ref_cam.cx) / ref_cam.fx
     ry = (ys - ref_cam.cy) / ref_cam.fy
     M, b = homography_terms(ref_cam, src_cams)
 
     if radius_map is None:
-        radius = torch.full((H, W), float(strong_radius), device=dev)
+        radius = torch.full((Hc, W), float(strong_radius), device=dev)
     else:
         r = radius_map.to(torch.float32)
         radius = torch.where(r <= 0, torch.full_like(r, float(strong_radius)),
@@ -182,7 +195,7 @@ def build_cost_context(
     if static_int:
         # integer static offsets: an edge-clamped shifted copy per tap
         offs = np.round(tap_grid() * strong_radius).astype(np.int64)
-        iy = torch.clamp(torch.arange(H, device=dev)[None, :, None]
+        iy = torch.clamp(row_ids[None, :, None]
                          + torch.as_tensor(offs[:, 1], device=dev)[:, None,
                                                                    None],
                          0, H - 1)
@@ -212,11 +225,11 @@ def build_cost_context(
     # NON-squared distances of APD.cu:776-781; the weak-pixel cost drops the
     # spatial term (ComputeBilateralWeight_YZL, APD.cu:783-788)
     if color_only_weights:
-        w_taps = fmath.exp(-torch.abs(ref_t - ref_img)
+        w_taps = fmath.exp(-torch.abs(ref_t - ref_c)
                            / (2.0 * sigma_color * sigma_color))
     else:
         w_taps = fmath.exp(-spatial / (2.0 * sigma_spatial * sigma_spatial)
-                           - torch.abs(ref_t - ref_img)
+                           - torch.abs(ref_t - ref_c)
                            / (2.0 * sigma_color * sigma_color))
     wref_taps = w_taps * ref_t
     # tap-ordered sums, as the reference loop accumulates them
@@ -240,7 +253,7 @@ def build_cost_context(
         src_wh=torch.as_tensor(src_wh, dtype=torch.float32, device=dev),
         backend=backend, strong_radius=strong_radius,
         has_radius_map=radius_map is not None,
-        color_only=color_only_weights,
+        color_only=color_only_weights, y0=y0,
     )
 
 
@@ -411,5 +424,6 @@ def ncc_cost_batch(ctx: CostContext, planes: torch.Tensor,
         from .warp_fused import warp_ncc
         return warp_ncc(planes, ctx.src_imgs, ctx.M, ctx.b, ctx.cam,
                         ctx.src_wh, ctx.w_taps, ctx.wref_taps, ctx.sum_w,
-                        ctx.sum_wref, ctx.sum_wref2, ctx.strong_radius)
+                        ctx.sum_wref, ctx.sum_wref2, ctx.strong_radius,
+                        y0=ctx.y0)
     return torch.stack([_ncc_cost_exact(ctx, p) for p in planes])

@@ -40,9 +40,13 @@ _NAME = "ncc_fused"
 MAX_VIEWS = 128     # the (plane, view) costs a block stages per pixel
 
 
-def eval_coords(Hp: int, Wp: int, parity: Optional[int], device):
-    """Full-resolution (xs, ys) float32 coordinates of the evaluation grid."""
+def eval_coords(Hp: int, Wp: int, parity: Optional[int], device,
+                y0: int = 0):
+    """Full-resolution (xs, ys) float32 coordinates of the evaluation grid,
+    whose first row is image row ``y0``."""
     xs, ys = _grid(Hp, Wp, device)
+    if y0:
+        ys = ys + float(y0)
     if parity is not None:
         xs = 2.0 * xs + torch.remainder(ys + parity, 2.0)
     return xs, ys
@@ -55,10 +59,10 @@ def _mats(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fused_ncc_costs_plain(planes, w_taps, wref_taps, wsums, src, M, b, cam,
                           src_wh, radius: float = 5.0, radius_map=None,
-                          parity=None):
+                          parity=None, y0: int = 0):
     """The plain version of K1: same arguments, same result [B, H', W', V]."""
     B, Hp, Wp, _ = planes.shape
-    xs, ys = eval_coords(Hp, Wp, parity, planes.device)
+    xs, ys = eval_coords(Hp, Wp, parity, planes.device, y0)
     rx = (xs - cam[0]) / cam[2]
     ry = (ys - cam[1]) / cam[3]
     inv_fx = 1.0 / cam[2]
@@ -78,14 +82,16 @@ def fused_ncc_costs_plain(planes, w_taps, wref_taps, wsums, src, M, b, cam,
 
 
 def fused_ncc_costs(planes, w_taps, wref_taps, wsums, src, M, b, cam, src_wh,
-                    radius: float = 5.0, radius_map=None, parity=None):
+                    radius: float = 5.0, radius_map=None, parity=None,
+                    y0: int = 0):
     """B plane fields x V views -> costs [B, H', W', V].
 
     planes [B, H', W', 4] (n, w); w_taps, wref_taps [36, H', W']; wsums
     [3, H', W'] (sum_w, sum_wref, sum_wref2); src [V, H, W] fp32; M [V, 3, 3]; b [V, 3];
     cam [4] (cx, cy, fx, fy of the reference); src_wh [V, 2]; radius the
     static window radius, or radius_map [H', W'] per pixel; parity None for
-    the dense grid or 0/1 for a checkerboard-packed one."""
+    the dense grid or 0/1 for a checkerboard-packed one; y0 the image row of
+    the evaluation grid's first row (a row window: H' rows from y0)."""
     B, Hp, Wp, four = planes.shape
     V, H, W = src.shape
     if four != 4 or w_taps.shape != (36, Hp, Wp) or \
@@ -97,10 +103,13 @@ def fused_ncc_costs(planes, w_taps, wref_taps, wsums, src, M, b, cam, src_wh,
         raise ValueError("fused_ncc_costs: radius_map must be [H', W']")
     if parity not in (None, 0, 1):
         raise ValueError("fused_ncc_costs: parity must be None, 0 or 1")
+    if not 0 <= y0 <= H - Hp:
+        raise ValueError(f"fused_ncc_costs: rows [{y0}, {y0 + Hp}) outside "
+                         f"an image of {H} rows")
     if planes.device.type == "cpu":
         return fused_ncc_costs_plain(planes, w_taps, wref_taps, wsums, src,
                                      M, b, cam, src_wh, radius, radius_map,
-                                     parity)
+                                     parity, y0)
     if planes.device.type != "cuda":
         raise ValueError(f"fused_ncc_costs: unsupported device "
                          f"{planes.device}")
@@ -120,13 +129,13 @@ def fused_ncc_costs(planes, w_taps, wref_taps, wsums, src, M, b, cam, src_wh,
     lib = _build.library(_NAME)
     fn = lib.launch_ncc_fused
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] + \
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     P = _build.ptr
     err = fn(P(planes), P(w_taps), P(wref_taps), P(wsums), P(radius_map),
              float(radius), P(src), P(mats), P(cam), P(src_wh), P(out),
              B, V, Hp, Wp, H, W, -1 if parity is None else int(parity),
-             ctypes.c_void_p(_build.stream_ptr(planes)))
+             int(y0), ctypes.c_void_p(_build.stream_ptr(planes)))
     _build.check(err, _NAME)
     return out
 
@@ -135,11 +144,12 @@ def fused_cost_from_ctx(ctx, planes: torch.Tensor, parity=None
                         ) -> torch.Tensor:
     """ncc_cost_batch entry: planes [B, H', W', 4] -> costs [B, H', W', V]
     (dense, or checkerboard-packed when ``parity`` is 0/1 — then the weight
-    fields of ``ctx`` must already be packed, see engine/packing.py)."""
+    fields of ``ctx`` must already be packed, see engine/packing.py); the
+    evaluation rows start at the context's image row ``ctx.y0``."""
     wsums = torch.stack([ctx.sum_w, ctx.sum_wref, ctx.sum_wref2])
     return fused_ncc_costs(
         planes.contiguous(), ctx.w_taps.contiguous(),
         ctx.wref_taps.contiguous(), wsums, ctx.src_imgs, ctx.M, ctx.b,
         ctx.cam, ctx.src_wh, radius=float(ctx.strong_radius),
         radius_map=ctx.radius.contiguous() if ctx.has_radius_map else None,
-        parity=parity)
+        parity=parity, y0=ctx.y0)

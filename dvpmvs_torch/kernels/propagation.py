@@ -58,11 +58,26 @@ def shift_map(arr: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
     return torch.roll(arr, shifts=(-dy, -dx), dims=(0, 1))
 
 
-def _in_bounds_mask(H: int, W: int, dx: int, dy: int, device
-                    ) -> torch.Tensor:
+def _in_bounds_mask(H: int, W: int, dx: int, dy: int, device,
+                    rows=None) -> torch.Tensor:
+    """Whether pixel (x + dx, y + dy) lies in the H x W image, for every
+    pixel, or for the compute rows of ``rows`` (an ``engine.rows.RowWindow``
+    of an H-row image): the image's bounds, not the window's."""
     xs = torch.arange(W, device=device)[None, :]
-    ys = torch.arange(H, device=device)[:, None]
+    ys = (torch.arange(H, device=device) if rows is None
+          else rows.row_ids(device))[:, None]
     return ((xs + dx >= 0) & (xs + dx < W) & (ys + dy >= 0) & (ys + dy < H))
+
+
+def shift_rows(arr: torch.Tensor, dx: int, dy: int, rows=None
+               ) -> torch.Tensor:
+    """``shift_map(arr, dx, dy)`` on the compute rows of ``rows`` only (all
+    rows without): out[i, x] = arr[(y_i + dy) mod H, (x + dx) mod W] for
+    the image row y_i of compute row i."""
+    if rows is None:
+        return shift_map(arr, dx, dy)
+    idx = torch.remainder(rows.row_ids(arr.device) + dy, arr.shape[0])
+    return torch.roll(arr.index_select(0, idx), shifts=-dx, dims=1)
 
 
 def _extended_offsets(offsets: List[Tuple[int, int]], ext_round: int
@@ -73,30 +88,36 @@ def _extended_offsets(offsets: List[Tuple[int, int]], ext_round: int
             for (x, y) in offsets]
 
 
-def select_candidates(plane, cost, ray, strong_ok=None, extend_round=-1):
+def select_candidates(plane, cost, ray, strong_ok=None, extend_round=-1,
+                      rows=None):
     """Pre-select the best candidate plane per direction by cost-map scan.
 
     Returns (cand_planes [8, H, W, 4], flags [8, H, W], map_costs
-    [8, H, W])."""
+    [8, H, W]); with ``rows`` (an ``engine.rows.RowWindow``) those of its
+    compute rows, read from the whole fields."""
     H, W = cost.shape
     dev = cost.device
-    inf = torch.full_like(cost, float("inf"))
+    shift = lambda a, dx, dy: shift_rows(a, dx, dy, rows)
+    if rows is not None:
+        ray = rows.take(ray)
+    inf = torch.full(ray.shape[:2], float("inf"), dtype=cost.dtype,
+                     device=dev)
     cand_planes, flags, map_costs = [], [], []
     for offsets in DIRECTIONS:
         if extend_round >= 0:
             offsets = _extended_offsets(offsets, extend_round)
         bx, by = offsets[0]
-        base_ok = _in_bounds_mask(H, W, bx, by, dev)
+        base_ok = _in_bounds_mask(H, W, bx, by, dev, rows)
         if strong_ok is not None:
-            base_ok = base_ok & shift_map(strong_ok, bx, by)
-        best_cost = torch.where(base_ok, shift_map(cost, bx, by), inf)
-        best_plane = shift_map(plane, bx, by)
+            base_ok = base_ok & shift(strong_ok, bx, by)
+        best_cost = torch.where(base_ok, shift(cost, bx, by), inf)
+        best_plane = shift(plane, bx, by)
         for (ox, oy) in offsets[1:]:
-            ok = _in_bounds_mask(H, W, ox, oy, dev)
+            ok = _in_bounds_mask(H, W, ox, oy, dev, rows)
             if strong_ok is not None:
-                ok = ok & shift_map(strong_ok, ox, oy)
-            c = shift_map(cost, ox, oy)
-            pl = shift_map(plane, ox, oy)
+                ok = ok & shift(strong_ok, ox, oy)
+            c = shift(cost, ox, oy)
+            pl = shift(plane, ox, oy)
             facing = torch.sum(pl[..., :3] * ray, dim=-1) <= 0.0
             better = ok & facing & (c < best_cost)
             best_cost = torch.where(better, c, best_cost)
@@ -137,23 +158,29 @@ def _first_min_idx(work: torch.Tensor) -> torch.Tensor:
                      dim=0).values
 
 
-def _take_shifted(plane: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor
-                  ) -> torch.Tensor:
-    """plane[(y + oy) mod H, (x + ox) mod W] for per-pixel offsets."""
+def _take_shifted(plane: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
+                  rows=None) -> torch.Tensor:
+    """plane[(y + oy) mod H, (x + ox) mod W] for per-pixel offsets (on the
+    compute rows of ``rows``: ox, oy and the result on them)."""
     H, W = plane.shape[:2]
-    ys = torch.arange(H, device=plane.device)[:, None]
+    ys = (torch.arange(H, device=plane.device) if rows is None
+          else rows.row_ids(plane.device))[:, None]
     xs = torch.arange(W, device=plane.device)[None, :]
     flat = torch.remainder(ys + oy, H) * W + torch.remainder(xs + ox, W)
-    return plane.reshape(H * W, -1)[flat.reshape(-1)].reshape(plane.shape)
+    return plane.reshape(H * W, -1)[flat.reshape(-1)].reshape(
+        flat.shape + plane.shape[2:])
 
 
-def select_candidates_edge(plane, cost, edge, edge_dist):
+def select_candidates_edge(plane, cost, edge, edge_dist, rows=None):
     """Edge-adaptive candidate pre-selection (APD.cu:2038-2140).
 
     Returns (cand1 [8, H, W, 4], flags1 [8, H, W], cand2, flags2,
-    differs [8, H, W])."""
+    differs [8, H, W]); with ``rows`` (an ``engine.rows.RowWindow``) those
+    of its compute rows, read from the whole fields."""
     H, W = cost.shape
     dev = cost.device
+    take = (lambda a: a) if rows is None else rows.take
+    edge = take(edge)
     sq2 = math.sqrt(2.0)
     max_d = max(H, W) / 30.0
     s_max = min(22, max(11, int(max_d * 0.5)))
@@ -163,8 +190,9 @@ def select_candidates_edge(plane, cost, edge, edge_dist):
         diag = d >= 4
         fx, fy = _EDGE_NUDGE[d]
         # per-pixel steps-to-edge along this ray (APD.cu:2054-2062)
-        dist = edge_dist[d] / (sq2 if diag else 1.0)
-        nohit = edge_dist[d] >= 1e8
+        ed = take(edge_dist[d])
+        dist = ed / (sq2 if diag else 1.0)
+        nohit = ed >= 1e8
         cap = max_d / (sq2 if diag else 1.0)
         dist = torch.where(nohit | (dist >= max_d),
                            torch.full_like(dist, cap), dist)
@@ -182,10 +210,10 @@ def select_candidates_edge(plane, cost, edge, edge_dist):
             for s in range(s_max):
                 ox = 5 * dx + s * L * dx + fx
                 oy = 5 * dy + s * L * dy + fy
-                inb = _in_bounds_mask(H, W, ox, oy, dev)
+                inb = _in_bounds_mask(H, W, ox, oy, dev, rows)
                 if L == 2 and s < 11:
                     short_rows.append(len(cands))
-                cands.append(shift_map(cost, ox, oy))
+                cands.append(shift_rows(cost, ox, oy, rows))
                 oks.append(sel_L & inb & (s < step_num))
                 oxs.append(ox)
                 oys.append(oy)
@@ -201,7 +229,7 @@ def select_candidates_edge(plane, cost, edge, edge_dist):
         got1 = torch.any(ok1, dim=0)
 
         srows = torch.as_tensor(short_rows, device=dev)
-        ok2 = torch.stack([_in_bounds_mask(H, W, oxs[i], oys[i], dev)
+        ok2 = torch.stack([_in_bounds_mask(H, W, oxs[i], oys[i], dev, rows)
                            for i in short_rows])
         arg2 = torch.clamp(_first_min_idx(torch.where(ok2, cstack[srows],
                                                       inf[srows])),
@@ -211,8 +239,8 @@ def select_candidates_edge(plane, cost, edge, edge_dist):
 
         o1x, o1y = ox_t[arg1], oy_t[arg1]
         o2x, o2y = ox_t[row2], oy_t[row2]
-        cand1.append(_take_shifted(plane, o1x, o1y))
-        cand2.append(_take_shifted(plane, o2x, o2y))
+        cand1.append(_take_shifted(plane, o1x, o1y, rows))
+        cand2.append(_take_shifted(plane, o2x, o2y, rows))
         flags1.append(got1)
         flags2.append(got2)
         differs.append(got1 & got2 & ((o1y * W + o1x) != (o2y * W + o2x)))
@@ -255,13 +283,15 @@ def judge_extend(iter_idx, ext_round: int, cost_array, flags):
     return flags & ~((good >= 1) & (bad <= 2))
 
 
-def neighbor_prior(sel_views, flags):
+def neighbor_prior(sel_views, flags, rows=None):
     """Strong-pass view-selection prior from the 4 direct neighbors'
-    selected-view sets, gated by flag[2i] (APD.cu:2468-2480)."""
-    prior = torch.zeros(sel_views.shape, dtype=torch.float32,
-                        device=sel_views.device)
+    selected-view sets, gated by flag[2i] (APD.cu:2468-2480); with
+    ``rows`` on its compute rows (``flags`` on them, ``sel_views``
+    whole)."""
+    prior = torch.zeros(flags.shape[1:] + sel_views.shape[2:],
+                        dtype=torch.float32, device=sel_views.device)
     for (ox, oy), fidx in zip(PRIOR_NEIGHBOR_OFFSETS, PRIOR_FLAG_INDEX):
-        nb = shift_map(sel_views.to(torch.float32), ox, oy)
+        nb = shift_rows(sel_views.to(torch.float32), ox, oy, rows)
         gate = flags[fidx][..., None].to(torch.float32)
         prior = prior + gate * torch.where(nb > 0, 0.9, 0.1)
     return prior

@@ -12,6 +12,10 @@ kernel (K2) with the geom kernel (K3) folding the geometric term; otherwise
 (the exact and warp backends, or a radius map) the constant-plane sweep
 ``_sweep_costs`` evaluates candidate chunks through ``ncc_cost_batch``, with
 the geom term from K3's per-view mode for every backend.
+
+With ``rows`` (an ``engine.rows.RowWindow`` of the tiled pass) both sweeps
+score the window's compute rows against whole per-pixel inputs and return
+the compute rows' result; the caller exchanges the owned rows.
 """
 
 from __future__ import annotations
@@ -36,24 +40,31 @@ def _full(like: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full_like(like, value)
 
 
+def _take(rows):
+    return (lambda a: a) if rows is None else rows.take
+
+
 def _field_sweep_costs(ctx: CostContext, gctx, geom_factor, depth, baseline,
                        k0: int, K: int, sel_views, view_weights,
-                       ref_cam: Camera, depth_min, depth_max):
+                       ref_cam: Camera, depth_min, depth_max, rows=None):
     """[K, H, W] sweep costs via the sweep kernel (steps k - k0 around the
     per-pixel disparity of ``depth``); weighting, in-range and no-view
-    masking match ``_sweep_costs``."""
+    masking match ``_sweep_costs``.  ``depth`` and ``baseline`` are whole;
+    the result is on the compute rows of ``rows``."""
     from .sweep_fused import sweep_weighted_from_ctx
 
+    take = _take(rows)
     fx = ref_cam.fx
-    w = view_weights * sel_views.to(torch.float32)
+    w = take(view_weights) * take(sel_views).to(torch.float32)
     norm = torch.sum(w, dim=-1)
     wsum = sweep_weighted_from_ctx(ctx, depth, baseline, fx, w, K=K, k0=k0)
 
+    depth, baseline = take(depth), take(baseline)
     disp = fx * baseline / torch.clamp(depth, min=1e-12)
     ks = torch.arange(K, dtype=torch.float32, device=depth.device) - k0
     depth_stack = fx * baseline / (disp[None] + ks[:, None, None])
     if gctx is not None:
-        gw = geom_cost(gctx, depth_stack, vweights=w, fold=True)
+        gw = geom_cost(gctx, depth_stack, vweights=w, fold=True, y0=ctx.y0)
         wsum = wsum + geom_factor * gw
     cost = wsum / torch.clamp(norm, min=1e-30)[None]
     in_range = (depth_stack >= depth_min) & (depth_stack <= depth_max)
@@ -86,7 +97,8 @@ def _sweep_costs(ctx: CostContext, gctx, geom_factor, normal, depth_stack,
                                                       ref_cam) for dd in d])
         cv = ncc_cost_batch(ctx, planes)                       # [k,H,W,V]
         if gctx is not None:
-            cv = cv + geom_factor * geom_cost(gctx, d.contiguous())
+            cv = cv + geom_factor * geom_cost(gctx, d.contiguous(),
+                                              y0=ctx.y0)
         cost = torch.sum(cv * w[None], dim=-1) / torch.clamp(norm, min=1e-30)
         in_range = (d >= depth_min) & (d <= depth_max)
         outs.append(torch.where(in_range & (norm > 0), cost,
@@ -97,36 +109,41 @@ def _sweep_costs(ctx: CostContext, gctx, geom_factor, normal, depth_stack,
 def depth_to_weak(ctx: CostContext, gctx, geom_factor, normal, depth,
                   sel_views, view_weights, xs, ys, ref_cam: Camera,
                   src_cams: Camera, depth_min, depth_max, weak_peak_radius,
-                  radius_steps: int = 30, return_curve: bool = False
-                  ) -> torch.Tensor:
+                  radius_steps: int = 30, return_curve: bool = False,
+                  rows=None) -> torch.Tensor:
     """Reclassify pixels -> int8 [H, W] of PixelState.
 
     ``return_curve`` also returns the [2*radius_steps+1, H, W] sweep cost
     curves (the reference's DEBUG_COST_LINE buffer, APD.cu:3990-3997)."""
+    take = _take(rows)
     baseline, nsel = _mean_selected_baseline(sel_views, ref_cam, src_cams)
     fx = ref_cam.fx
     if _field_sweep_eligible(ctx):
         p_costs = _field_sweep_costs(
             ctx, gctx, geom_factor, depth, baseline, radius_steps,
             2 * radius_steps + 1, sel_views, view_weights, ref_cam,
-            depth_min, depth_max)                              # [61, H, W]
+            depth_min, depth_max, rows)                        # [61, H, W]
+        depth, nsel = take(depth), take(nsel)
     else:
+        depth, nsel, baseline = take(depth), take(nsel), take(baseline)
         disp = fx * baseline / torch.clamp(depth, min=1e-12)
         ks = torch.arange(-radius_steps, radius_steps + 1,
                           dtype=torch.float32, device=depth.device)
         depth_stack = fx * baseline / (disp[None] + ks[:, None, None])
-        p_costs = _sweep_costs(ctx, gctx, geom_factor, normal, depth_stack,
-                               sel_views, view_weights, xs, ys, ref_cam,
-                               depth_min, depth_max)
+        p_costs = _sweep_costs(ctx, gctx, geom_factor, take(normal),
+                               depth_stack, take(sel_views),
+                               take(view_weights), take(xs), take(ys),
+                               ref_cam, depth_min, depth_max)
     p_costs = torch.clamp(p_costs, max=COST_MAX)
     weak = classify_from_sweep(p_costs, depth, nsel, radius_steps,
-                               weak_peak_radius)
+                               weak_peak_radius, rows)
     return (weak, p_costs) if return_curve else weak
 
 
 def classify_from_sweep(p_costs, depth, nsel, radius_steps: int,
-                        weak_peak_radius) -> torch.Tensor:
-    """Peak-structure classification of sweep cost curves [K, H, W]."""
+                        weak_peak_radius, rows=None) -> torch.Tensor:
+    """Peak-structure classification of sweep cost curves [K, H, W] (on the
+    compute rows of ``rows``: the border margin is the image's)."""
     H, W = depth.shape
     dev = depth.device
     min_margin = 6
@@ -164,6 +181,8 @@ def classify_from_sweep(p_costs, depth, nsel, radius_steps: int,
                     torch.where(single_strong, strong_v, weak_v),
                     torch.where(multi_strong, strong_v, weak_v)))
     ysg = torch.arange(H, device=dev)[:, None]
+    if rows is not None:
+        H, ysg = rows.H, rows.row_ids(dev)[:, None]
     xsg = torch.arange(W, device=dev)[None, :]
     border = ((xsg < min_margin) | (ysg < min_margin)
               | (xsg >= W - min_margin) | (ysg >= H - min_margin))
@@ -174,21 +193,25 @@ def classify_from_sweep(p_costs, depth, nsel, radius_steps: int,
 def local_refine(ctx: CostContext, gctx, geom_factor, normal, depth,
                  sel_views, view_weights, xs, ys, ref_cam: Camera,
                  src_cams: Camera, depth_min, depth_max,
-                 radius_steps: int = 5) -> torch.Tensor:
+                 radius_steps: int = 5, rows=None) -> torch.Tensor:
     """+-5-disparity polish of the depth map -> refined depth [H, W]."""
+    take = _take(rows)
     baseline, nsel = _mean_selected_baseline(sel_views, ref_cam, src_cams)
     fx = ref_cam.fx
-    disp = fx * baseline / torch.clamp(depth, min=1e-12)
-    ks = torch.arange(-radius_steps, radius_steps + 1, dtype=torch.float32,
-                      device=depth.device)
-    depths = fx * baseline / (disp[None] + ks[:, None, None])
     if _field_sweep_eligible(ctx):
         costs = _field_sweep_costs(
             ctx, gctx, geom_factor, depth, baseline, radius_steps,
             2 * radius_steps + 1, sel_views, view_weights, ref_cam,
-            depth_min, depth_max)                              # [11, H, W]
+            depth_min, depth_max, rows)                        # [11, H, W]
         cost_now = costs[radius_steps]
-    else:
+    depth, baseline, nsel = take(depth), take(baseline), take(nsel)
+    disp = fx * baseline / torch.clamp(depth, min=1e-12)
+    ks = torch.arange(-radius_steps, radius_steps + 1, dtype=torch.float32,
+                      device=depth.device)
+    depths = fx * baseline / (disp[None] + ks[:, None, None])
+    if not _field_sweep_eligible(ctx):
+        normal, sel_views, view_weights, xs, ys = (
+            take(a) for a in (normal, sel_views, view_weights, xs, ys))
         costs = _sweep_costs(ctx, gctx, geom_factor, normal, depths,
                              sel_views, view_weights, xs, ys, ref_cam,
                              depth_min, depth_max)

@@ -12,7 +12,10 @@ weights into [K, H, W] = sum_v vw_v * cost_v.
 Border semantics: a tap past the image border reads the warped field of the
 nearest border pixel (edge replication at the true border).  The JAX kernel
 edge-replicates its zero-padded 16x256 tile multiple instead, so the two
-differ within the window radius of the right and bottom borders.
+differ within the window radius of the right and bottom borders.  A row
+window of the tiled pass (``y0``, the image row of the output's first row)
+takes the per-pixel inputs of its rows and invd0, invbl whole: its halo
+reads the real neighbouring rows, and only the image border replicates.
 
 ``sweep_weighted_ncc`` launches ``csrc/sweep.cu`` for tensors on the card
 and runs ``sweep_weighted_ncc_plain`` for tensors on the CPU.  The kernel
@@ -49,11 +52,18 @@ def tap_offsets(radius: int) -> np.ndarray:
 
 def sweep_weighted_ncc_plain(invd0, invbl, vweights, w_taps, wref_taps, wsums,
                              src, M, b, cam, src_wh, K: int, k0: int,
-                             radius: int = 5):
-    """The plain version of K2: same arguments, same result [K, H, W]."""
+                             radius: int = 5, y0: int = 0):
+    """The plain version of K2: same arguments, same result [K, Ho, W].
+    The warped field is formed on the output rows and their halo only."""
     H, W = invd0.shape
+    Ho = wsums.shape[1]
     dev = invd0.device
-    xs, ys = _grid(H, W, dev)
+    offs = torch.as_tensor(tap_offsets(radius), device=dev, dtype=torch.long)
+    halo = int(offs.abs().max())
+    r0, r1 = max(y0 - halo, 0), min(y0 + Ho + halo, H)   # field rows
+    invd0, invbl = invd0[r0:r1], invbl[r0:r1]
+    xs, ys = _grid(r1 - r0, W, dev)
+    ys = ys + float(r0)
     rx = (xs - cam[0]) / cam[2]
     ry = (ys - cam[1]) / cam[3]
     e = lambda a: a[:, None, None]
@@ -63,9 +73,8 @@ def sweep_weighted_ncc_plain(invd0, invbl, vweights, w_taps, wref_taps, wsums,
     m_ref = wsums[1] * inv
     var_ref = wsums[2] * inv - m_ref * m_ref
     ref_bad = var_ref < _K_MIN_VAR
-    offs = torch.as_tensor(tap_offsets(radius), device=dev, dtype=torch.long)
-    iy = torch.clamp(torch.arange(H, device=dev)[None, :, None]
-                     + offs[0][:, None, None], 0, H - 1)       # [T, H, 1]
+    iy = torch.clamp(torch.arange(y0, y0 + Ho, device=dev)[None, :, None]
+                     + offs[0][:, None, None], 0, H - 1) - r0  # [T, Ho, 1]
     ix = torch.clamp(torch.arange(W, device=dev)[None, None, :]
                      + offs[1][:, None, None], 0, W - 1)       # [T, 1, W]
     sw = e(src_wh[:, 0])
@@ -89,7 +98,8 @@ def sweep_weighted_ncc_plain(invd0, invbl, vweights, w_taps, wref_taps, wsums,
         ncc = covar / torch.clamp(var_prod, min=1e-30)
         cost = torch.clamp(1.0 - ncc, 0.0, COST_MAX)
         in_view = (pxu >= 0) & (pxu < sw) & (pyu >= 0) & (pyu < sh) & (hz > 0)
-        bad = ref_bad | (var_src < _K_MIN_VAR) | ~in_view
+        bad = ref_bad | (var_src < _K_MIN_VAR) | ~in_view[:, y0 - r0:
+                                                          y0 - r0 + Ho]
         cost = torch.where(bad, torch.full_like(cost, COST_MAX), cost)
         acc = vweights[0] * cost[0]
         for v in range(1, cost.shape[0]):      # view order, as the kernel
@@ -99,23 +109,27 @@ def sweep_weighted_ncc_plain(invd0, invbl, vweights, w_taps, wref_taps, wsums,
 
 
 def sweep_weighted_ncc(invd0, invbl, vweights, w_taps, wref_taps, wsums, src,
-                       M, b, cam, src_wh, K: int, k0: int, radius: int = 5):
-    """Weighted NCC costs of the K-step sweep (steps k - k0) -> [K, H, W].
+                       M, b, cam, src_wh, K: int, k0: int, radius: int = 5,
+                       y0: int = 0):
+    """Weighted NCC costs of the K-step sweep (steps k - k0) -> [K, Ho, W].
 
     invd0 [H, W] inverse depth at step k0; invbl [H, W] 1/(fx*baseline) (0 =
-    no motion); vweights [V, H, W] fold weights; w_taps, wref_taps
-    [36, H, W]; wsums [3, H, W]; src [V, H, W] fp32; M [V, 3, 3]; b [V, 3];
-    cam [4] (cx, cy, fx, fy); src_wh [V, 2]; radius the static window."""
+    no motion); vweights [V, Ho, W] fold weights; w_taps, wref_taps
+    [36, Ho, W]; wsums [3, Ho, W]; src [V, H, W] fp32; M [V, 3, 3]; b [V, 3];
+    cam [4] (cx, cy, fx, fy); src_wh [V, 2]; radius the static window; the
+    Ho output rows are image rows y0 .. y0 + Ho - 1 (the whole image by
+    default)."""
     H, W = invd0.shape
     V = src.shape[0]
-    if invbl.shape != (H, W) or vweights.shape != (V, H, W) or \
-            w_taps.shape != (36, H, W) or wsums.shape != (3, H, W) or \
-            tuple(src.shape[1:]) != (H, W):
+    Ho = wsums.shape[1] if wsums.dim() == 3 else -1
+    if invbl.shape != (H, W) or vweights.shape != (V, Ho, W) or \
+            w_taps.shape != (36, Ho, W) or wsums.shape != (3, Ho, W) or \
+            tuple(src.shape[1:]) != (H, W) or not 0 <= y0 <= H - Ho:
         raise ValueError("sweep_weighted_ncc: inconsistent shapes")
     if invd0.device.type == "cpu":
         return sweep_weighted_ncc_plain(invd0, invbl, vweights, w_taps,
                                         wref_taps, wsums, src, M, b, cam,
-                                        src_wh, K, k0, radius)
+                                        src_wh, K, k0, radius, y0)
     if invd0.device.type != "cuda":
         raise ValueError(f"sweep_weighted_ncc: unsupported device "
                          f"{invd0.device}")
@@ -131,15 +145,15 @@ def sweep_weighted_ncc(invd0, invbl, vweights, w_taps, wref_taps, wsums, src,
     ins = [invd0, invbl, vweights, w_taps, wref_taps, wsums, src, mats, cam,
            src_wh]
     _build.require_cuda_inputs(_NAME, ins, invd0.device)
-    out = torch.empty((K, H, W), dtype=torch.float32, device=invd0.device)
+    out = torch.empty((K, Ho, W), dtype=torch.float32, device=invd0.device)
     fn = _build.library(_NAME).launch_sweep
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     P = _build.ptr
     err = fn(P(invd0), P(invbl), P(vweights), P(w_taps), P(wref_taps),
              P(wsums), P(src), P(mats), P(cam), P(src_wh), P(out),
-             int(K), int(k0), V, H, W, int(radius),
+             int(K), int(k0), V, H, W, int(radius), int(y0), Ho,
              ctypes.c_void_p(_build.stream_ptr(invd0)))
     _build.check(err, _NAME)
     return out
@@ -147,10 +161,12 @@ def sweep_weighted_ncc(invd0, invbl, vweights, w_taps, wref_taps, wsums, src,
 
 def sweep_weighted_from_ctx(ctx, depth, baseline, fx, vweights, K: int,
                             k0: int) -> torch.Tensor:
-    """[K, H, W] weighted NCC sums for the sweep around ``depth``.
+    """[K, H', W] weighted NCC sums for the sweep around ``depth``.
 
-    ``ctx`` is a full-grid CostContext with the static window;
-    ``vweights`` [H, W, V] is view_weights * selected mask."""
+    ``ctx`` is a CostContext with the static window, on the whole grid or
+    on the H' rows of a row window from ``ctx.y0``; ``depth`` and
+    ``baseline`` are whole [H, W]; ``vweights`` [H', W, V] is view_weights
+    * selected mask on the context's rows."""
     invd0 = 1.0 / torch.clamp(depth, min=1e-12)
     fxbl = fx * baseline
     invbl = torch.where(fxbl > 0, 1.0 / torch.clamp(fxbl, min=1e-12),
@@ -160,4 +176,4 @@ def sweep_weighted_from_ctx(ctx, depth, baseline, fx, vweights, K: int,
         invd0.contiguous(), invbl.contiguous(),
         torch.movedim(vweights, -1, 0).contiguous(), ctx.w_taps.contiguous(),
         ctx.wref_taps.contiguous(), wsums, ctx.src_imgs, ctx.M, ctx.b,
-        ctx.cam, ctx.src_wh, K=K, k0=k0, radius=ctx.strong_radius)
+        ctx.cam, ctx.src_wh, K=K, k0=k0, radius=ctx.strong_radius, y0=ctx.y0)

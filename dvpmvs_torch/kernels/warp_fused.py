@@ -34,11 +34,15 @@ _NAME = "warp"
 KERNEL_PLANES = {"ncc": 0}
 
 
-def warp_coords(plane, M, b, cam, src_wh):
-    """The source coordinates (px, py) [V, H, W] of every reference pixel
-    under its own plane, and the in-view mask: K5 before its sample."""
-    H, W = plane.shape[:2]
-    xs, ys = _grid(H, W, plane.device)
+def warp_coords(plane, M, b, cam, src_wh, y0: int = 0, H: int = 0):
+    """The source coordinates (px, py) [V, H', W] of every reference pixel
+    under its own plane, and the in-view mask: K5 before its sample.  The
+    plane rows are image rows (y0 + i) mod H (the whole image by
+    default)."""
+    Hp, W = plane.shape[:2]
+    xs, ys = _grid(Hp, W, plane.device)
+    if y0 or (H and Hp > H):
+        ys = torch.remainder(ys + float(y0), float(H))
     rx = (xs - cam[0]) / cam[2]
     ry = (ys - cam[1]) / cam[3]
     n0, n1, n2, w_d = plane.unbind(-1)
@@ -98,17 +102,18 @@ def tap_shifts(radius: int) -> np.ndarray:
 
 
 def warp_ncc_plain(planes, src, M, b, cam, src_wh, w_taps, wref_taps,
-                   sum_w, sum_wref, sum_wref2, radius: int):
+                   sum_w, sum_wref, sum_wref2, radius: int, y0: int = 0):
     """The plain version of ``warp_ncc``: same arguments, same result.
     Plane by plane, K5's plain field, then the 36 shifted taps' moments
     in tap order and the NCC."""
-    B, H, W = planes.shape[:3]
-    V = src.shape[0]
+    B, Hin, W = planes.shape[:3]
+    V, H = src.shape[:2]
     shifts = tap_shifts(radius)
     inv = 1.0 / sum_w
     out = []
     for plane in planes:
-        warped, in_view = warp_field_plain(plane, src, M, b, cam, src_wh)
+        px, py, in_view = warp_coords(plane, M, b, cam, src_wh, y0, H)
+        warped = _bilinear_sample_batch(src, px, py)
         s1 = s2 = s3 = 0.0
         for t in range(shifts.shape[1]):
             src_t = shift2(warped, int(shifts[0, t]), int(shifts[1, t]))
@@ -119,30 +124,36 @@ def warp_ncc_plain(planes, src, M, b, cam, src_wh, w_taps, wref_taps,
         out.append(_ncc_from_moments(inv, sum_wref, sum_wref2, s1, s2, s3,
                                      in_view))
     if not out:
-        return torch.empty((0, H, W, V), dtype=torch.float32,
+        return torch.empty((0, Hin, W, V), dtype=torch.float32,
                            device=planes.device)
     return torch.stack(out)
 
 
 def warp_ncc(planes, src, M, b, cam, src_wh, w_taps, wref_taps, sum_w,
-             sum_wref, sum_wref2, radius: int):
-    """planes [B, H, W, 4] (n, w); src [V, H, W] fp32 sources; M [V, 3, 3],
-    b [V, 3]; cam [4]; src_wh [V, 2]; w_taps, wref_taps [36, H, W] the tap
-    weights; sum_w, sum_wref, sum_wref2 [H, W] their sums; radius the
-    static int radius of the shifts -> cost [B, H, W, V] f32."""
-    B, H, W, four = planes.shape
-    V = src.shape[0]
-    if four != 4 or tuple(src.shape[1:]) != (H, W) or \
-            tuple(w_taps.shape) != (36, H, W) or \
-            tuple(wref_taps.shape) != (36, H, W) or \
-            any(tuple(t.shape) != (H, W)
+             sum_wref, sum_wref2, radius: int, y0: int = 0):
+    """planes [B, H', W, 4] (n, w); src [V, H, W] fp32 sources; M [V, 3, 3],
+    b [V, 3]; cam [4]; src_wh [V, 2]; w_taps, wref_taps [36, H', W] the tap
+    weights; sum_w, sum_wref, sum_wref2 [H', W] their sums; radius the
+    static int radius of the shifts -> cost [B, H', W, V] f32.
+
+    The H' rows are image rows (y0 + i) mod H (the whole image: y0 = 0,
+    H' = H).  A tap's row wraps within them: the image's wrap for the whole
+    image; for a window of rows with |shift| rows of halo on each side the
+    costs of the inner rows are the whole image's."""
+    B, Hin, W, four = planes.shape
+    V, H = src.shape[:2]
+    if four != 4 or src.shape[2] != W or not -H < y0 < H or Hin > H or \
+            tuple(w_taps.shape) != (36, Hin, W) or \
+            tuple(wref_taps.shape) != (36, Hin, W) or \
+            any(tuple(t.shape) != (Hin, W)
                 for t in (sum_w, sum_wref, sum_wref2)):
         raise ValueError(f"warp_ncc: inconsistent shapes planes "
                          f"{tuple(planes.shape)} src {tuple(src.shape)} "
-                         f"w_taps {tuple(w_taps.shape)}")
+                         f"w_taps {tuple(w_taps.shape)} row origin {y0}")
     if planes.device.type == "cpu":
         return warp_ncc_plain(planes, src, M, b, cam, src_wh, w_taps,
-                              wref_taps, sum_w, sum_wref, sum_wref2, radius)
+                              wref_taps, sum_w, sum_wref, sum_wref2, radius,
+                              y0)
     if planes.device.type != "cuda":
         raise ValueError(f"warp_ncc: unsupported device {planes.device}")
 
@@ -165,18 +176,19 @@ def warp_ncc(planes, src, M, b, cam, src_wh, w_taps, wref_taps, sum_w,
     if lib.warp_ncc_smem_bytes(V, halo) < 0:
         raise ValueError(f"warp_ncc: radius {radius} (halo {halo}) at V={V} "
                          "needs more shared memory than a block may have")
-    out = torch.empty((B, H, W, V), dtype=torch.float32,
+    out = torch.empty((B, Hin, W, V), dtype=torch.float32,
                       device=planes.device)
     if B == 0:
         return out
     fn = lib.launch_warp_ncc
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     table = np.ascontiguousarray(shifts)
     P = _build.ptr
     err = fn(*[P(t) for t in ins], table.ctypes.data_as(ctypes.c_void_p),
-             P(out), B, V, H, W, ctypes.c_void_p(_build.stream_ptr(planes)))
+             P(out), B, V, H, W, Hin, int(y0),
+             ctypes.c_void_p(_build.stream_ptr(planes)))
     _build.check(err, _NAME, "ncc")
     KERNEL_PLANES["ncc"] += B
     return out

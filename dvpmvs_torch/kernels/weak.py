@@ -34,7 +34,7 @@ from ..config import PixelState
 from ..geometry.camera import Camera
 from ..rng import DrawSource, KeyPath, fold_in
 from .ncc import _guard
-from .propagation import _in_bounds_mask, shift_map
+from .propagation import _in_bounds_mask, shift_map, shift_rows
 
 
 def _int_grid(H: int, W: int, device):
@@ -375,18 +375,26 @@ def find_anchors(
     ransac_iters: int = 50,
     label: Optional[torch.Tensor] = None,        # [H, W] int labels
     label_dist: Optional[torch.Tensor] = None,   # [8, H, W]
+    rows=None,
 ) -> AnchorResult:
     """Directional STRONG-anchor search + RANSAC reliability vote.
 
     Returns the best NUM_ANCHORS anchors per weak pixel, sorted by distance
     to the RANSAC plane, and the reliability mask.  With ``label`` and
     ``label_dist`` labeled weak pixels gain in-region candidates along the 8
-    rays and RANSAC prefers "strong" planes (APD.cu:3461-3539, 3629-3652)."""
+    rays and RANSAC prefers "strong" planes (APD.cu:3461-3539, 3629-3652).
+    With ``rows`` (an ``engine.rows.RowWindow``) only the window's compute
+    rows are searched, along rays over the whole inputs: the draws are
+    taken at the whole grid and cut to the window, so the result equals
+    those rows of the whole search."""
     H, W = weak.shape
     dev = weak.device
+    win_rows = (lambda a, axis=0: a) if rows is None else rows.take
+    shift = lambda a, dx, dy: shift_rows(a, dx, dy, rows)
     strong = weak == PixelState.STRONG
     ns_coords, ns_valid = nearest_strong(weak)
-    xs, ys = _int_grid(H, W, dev)
+    xs, ys = (win_rows(g) for g in _int_grid(H, W, dev))
+    Hc = xs.shape[0]
 
     angle = 45.0 / rotate_time
     cone_cos = math.cos(math.radians(angle / 2.0))
@@ -402,23 +410,25 @@ def find_anchors(
     radii = _ray_offsets(max_extent)
     edge_b = edge.to(torch.bool) if edge is not None else None
     if use_limit and complexity is not None:
-        bypass = draws.uniform(path, (H, W)) < complexity
+        bypass = (win_rows(draws.uniform(path, (H, W)))
+                  < win_rows(complexity))
     else:
-        bypass = torch.zeros((H, W), dtype=torch.bool, device=dev)
+        bypass = torch.zeros((Hc, W), dtype=torch.bool, device=dev)
 
     # the plane at each pixel's nearest strong point, gathered once; the
     # walk carries candidate planes beside the coordinates
     ns_idx = (torch.clamp(ns_coords[..., 1], 0, H - 1) * W
               + torch.clamp(ns_coords[..., 0], 0, W - 1))
     plane_ns = plane.reshape(-1, 4)[ns_idx.to(torch.int64)]
-    neg1 = torch.full((H, W), -1, dtype=torch.int32, device=dev)
-    no = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    neg1 = torch.full((Hc, W), -1, dtype=torch.int32, device=dev)
+    no = torch.zeros((Hc, W), dtype=torch.bool, device=dev)
+    zero_pl = torch.zeros((Hc, W, 4), dtype=plane.dtype, device=dev)
 
     anchor_x, anchor_y, anchor_ok, anchor_pl = [], [], [], []
     for (ux, uy) in dirs:
         found = no
         ax, ay = neg1, neg1
-        apl = torch.zeros_like(plane)
+        apl = zero_pl
         blocked = no
         prev_dx = prev_dy = 0
         for r in radii:
@@ -432,20 +442,20 @@ def find_anchors(
                 mx = (dx + prev_dx) // 2
                 my = (dy + prev_dy) // 2
                 for (sx, sy) in ((mx, my), (dx, dy)):
-                    inb = _in_bounds_mask(H, W, sx, sy, dev)
-                    blocked = blocked | (inb & shift_map(edge_b, sx, sy))
+                    inb = _in_bounds_mask(H, W, sx, sy, dev, rows)
+                    blocked = blocked | (inb & shift(edge_b, sx, sy))
             prev_dx, prev_dy = dx, dy
 
-            inb = _in_bounds_mask(H, W, dx, dy, dev)
-            cand_strong = inb & shift_map(strong, dx, dy)
-            red_x = shift_map(ns_coords[..., 0], dx, dy)
-            red_y = shift_map(ns_coords[..., 1], dx, dy)
-            red_ok = inb & shift_map(ns_valid, dx, dy)
+            inb = _in_bounds_mask(H, W, dx, dy, dev, rows)
+            cand_strong = inb & shift(strong, dx, dy)
+            red_x = shift(ns_coords[..., 0], dx, dy)
+            red_y = shift(ns_coords[..., 1], dx, dy)
+            red_ok = inb & shift(ns_valid, dx, dy)
             cx = torch.where(cand_strong, xs + dx, red_x)
             cy = torch.where(cand_strong, ys + dy, red_y)
             cpl = torch.where(cand_strong[..., None],
-                              shift_map(plane, dx, dy),
-                              shift_map(plane_ns, dx, dy))
+                              shift(plane, dx, dy),
+                              shift(plane_ns, dx, dy))
             # angular-cone test (APD.cu:3437-3441) gates the redirects
             vx = (cx - xs).to(torch.float32)
             vy = (cy - ys).to(torch.float32)
@@ -464,17 +474,18 @@ def find_anchors(
 
     if label is not None and label_dist is not None:
         sq2 = math.sqrt(2.0)
-        lab_ok = label > 0
+        lab_ok = win_rows(label) > 0
         margin = 6                      # reference min_margin (APD.cu:3347)
         ladder = [s for s in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64,
                               96, 128, 192, 256) if s < max(H, W)]
         for d_idx, (ux, uy) in enumerate(_RAY_DIRS):
-            steps_b = label_dist[d_idx] / (sq2 if d_idx >= 4 else 1.0)
-            has_b = (label_dist[d_idx] < 1e8) & lab_ok
+            ldist = win_rows(label_dist[d_idx])
+            steps_b = ldist / (sq2 if d_idx >= 4 else 1.0)
+            has_b = (ldist < 1e8) & lab_ok
             for frac in (0.5, 1.0):
                 reach = steps_b * frac
                 ax, ay = neg1, neg1
-                apl = torch.zeros_like(plane)
+                apl = zero_pl
                 found = no
                 for s in ladder:
                     dx, dy = ux * s, uy * s
@@ -485,15 +496,15 @@ def find_anchors(
                     inb = ((sxp >= margin) & (sxp < W - margin)
                            & (syp >= margin) & (syp < H - margin))
                     oks = inb & (s <= reach) & has_b
-                    cand_strong = oks & shift_map(strong, dx, dy)
-                    red_x = shift_map(ns_coords[..., 0], dx, dy)
-                    red_y = shift_map(ns_coords[..., 1], dx, dy)
-                    red_ok = oks & shift_map(ns_valid, dx, dy)
+                    cand_strong = oks & shift(strong, dx, dy)
+                    red_x = shift(ns_coords[..., 0], dx, dy)
+                    red_y = shift(ns_coords[..., 1], dx, dy)
+                    red_ok = oks & shift(ns_valid, dx, dy)
                     cx = torch.where(cand_strong, sxp, red_x)
                     cy = torch.where(cand_strong, syp, red_y)
                     cpl = torch.where(cand_strong[..., None],
-                                      shift_map(plane, dx, dy),
-                                      shift_map(plane_ns, dx, dy))
+                                      shift(plane, dx, dy),
+                                      shift(plane_ns, dx, dy))
                     take = cand_strong | red_ok     # keep the farthest
                     ax = torch.where(take, cx, ax)
                     ay = torch.where(take, cy, ay)
@@ -521,21 +532,24 @@ def find_anchors(
     count = torch.sum(cand_ok, dim=0)
 
     # RANSAC vote over random triads
-    tri = draws.randint(fold_in(path, 1), (ransac_iters, 3, H, W), 0, D)
+    # (the window's rows copied out: the whole draw is freed)
+    tri = win_rows(draws.randint(fold_in(path, 1), (ransac_iters, 3, H, W),
+                                 0, D), 2).contiguous()
     px = xs.to(torch.float32)
     py = ys.to(torch.float32)
     rx_p = (px - cxk) / fx
     ry_p = (py - cyk) / fy
-    center_depth = _plane_depth(plane[..., 0], plane[..., 1], plane[..., 2],
-                                plane[..., 3], rx_p, ry_p)
+    plane_c = win_rows(plane)
+    center_depth = _plane_depth(plane_c[..., 0], plane_c[..., 1],
+                                plane_c[..., 2], plane_c[..., 3], rx_p, ry_p)
     # one gather per triad vertex: point (3), normal (3), x, y, ok
     fields = torch.cat([a_pt, a_norm, cand_x[..., None].to(torch.float32),
                         cand_y[..., None].to(torch.float32),
                         cand_ok[..., None].to(torch.float32)], dim=-1)
-    lab_pos = label > 0 if label is not None else None
+    lab_pos = win_rows(label) > 0 if label is not None else None
 
-    best_score = torch.full((H, W), float("-inf"), device=dev)
-    fit4 = torch.zeros((H, W, 4), device=dev)
+    best_score = torch.full((Hc, W), float("-inf"), device=dev)
+    fit4 = torch.zeros((Hc, W, 4), device=dev)
     for i in range(ransac_iters):
         ia, ib, ic = tri[i, 0], tri[i, 1], tri[i, 2]
         fa, fb, fc = _pick(fields, ia), _pick(fields, ib), _pick(fields, ic)
@@ -607,7 +621,7 @@ def find_anchors(
     sel_y = torch.stack(sel_y_l)
     sel_ok = torch.stack(sel_ok_l)
 
-    reliable = (weak == PixelState.WEAK) & has_plane & (count > 3)
+    reliable = (win_rows(weak) == PixelState.WEAK) & has_plane & (count > 3)
     coords = torch.stack([sel_x, sel_y], dim=-1)
     return AnchorResult(coords=coords, valid=sel_ok & reliable[None],
                         reliable=reliable)
@@ -629,13 +643,17 @@ def ransac_fit_plane(
     strong_radius: int = 5,
     edge_dist: Optional[torch.Tensor] = None,      # [8, H, W]
     label_dist: Optional[torch.Tensor] = None,
+    rows=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fit a plane through anchor triads minimising the summed depth
     residuals (APD.cu:4195-4404, bug B2 fixed: the radius triangle is the
     winning triad).  Returns (fit plane [H, W, 4], zeros where none) and
-    the adaptive radius map (or None)."""
+    the adaptive radius map (or None).  With ``rows`` (an
+    ``engine.rows.RowWindow``) ``anchors`` and the results are on its
+    compute rows; ``plane``, ``weak`` and the distance fields stay whole."""
     H, W = weak.shape
     dev = weak.device
+    take = (lambda a, axis=0: a) if rows is None else rows.take
     A = anchors.coords.shape[0]
     ax_c = anchors.coords[..., 0]
     ay_c = anchors.coords[..., 1]
@@ -651,17 +669,18 @@ def ransac_fit_plane(
                            a_plane[..., 2], a_plane[..., 3], rx_a, ry_a)
     a_pt = torch.stack([a_depth * rx_a, a_depth * ry_a, a_depth], dim=-1)
     a_norm = a_plane[..., :3]
-    xs_i, ys_i = _int_grid(H, W, dev)
+    xs_i, ys_i = (take(g) for g in _int_grid(H, W, dev))
     xs = xs_i.to(torch.float32)
     ys = ys_i.to(torch.float32)
+    Hc = xs.shape[0]
 
-    tri = draws.randint(path, (iters, 3, H, W), 0, A)
+    tri = take(draws.randint(path, (iters, 3, H, W), 0, A), 2).contiguous()
     fields = torch.cat([a_pt, a_norm, axf[..., None], ayf[..., None],
                         a_ok[..., None].to(torch.float32)], dim=-1)
 
-    best_cost = torch.full((H, W), float("inf"), device=dev)
-    fit4 = torch.zeros((H, W, 4), device=dev)
-    btri = torch.zeros((H, W, 3), dtype=torch.int32, device=dev)
+    best_cost = torch.full((Hc, W), float("inf"), device=dev)
+    fit4 = torch.zeros((Hc, W, 4), device=dev)
+    btri = torch.zeros((Hc, W, 3), dtype=torch.int32, device=dev)
     for i in range(iters):
         ia, ib, ic = tri[i, 0], tri[i, 1], tri[i, 2]
         fa, fb, fc = _pick(fields, ia), _pick(fields, ib), _pick(fields, ic)
@@ -690,7 +709,7 @@ def ransac_fit_plane(
         btri = torch.where(better[..., None],
                            torch.stack([ia, ib, ic], dim=-1), btri)
         best_cost = torch.minimum(best_cost, cost)
-    has = (torch.isfinite(best_cost) & (weak == PixelState.WEAK)
+    has = (torch.isfinite(best_cost) & (take(weak) == PixelState.WEAK)
            & (torch.sum(a_ok, dim=0) >= 3))
 
     # orient toward the camera (APD.cu:4340-4347)
@@ -721,10 +740,11 @@ def ransac_fit_plane(
                              fmath.hypot(Cxx - xs, Cyy - ys))
         radius = torch.where(2.5 * dmin < radius, torch.floor(dmin), radius)
         if edge_dist is not None:
-            radius = torch.minimum(radius, torch.min(edge_dist, dim=0).values)
+            radius = torch.minimum(radius, torch.min(take(edge_dist, 1),
+                                                     dim=0).values)
         if label_dist is not None:
-            radius = torch.minimum(radius,
-                                   torch.min(label_dist, dim=0).values)
+            radius = torch.minimum(radius, torch.min(take(label_dist, 1),
+                                                     dim=0).values)
         # quantise down to (2r) % 5 == 0 (APD.cu:4394)
         radius = torch.floor(radius / 2.5) * 2.5
         radius = torch.where(radius < strong_radius,

@@ -27,9 +27,14 @@ With ``config.mesh_views > 1`` each pass runs as one batch of all problems
 ``group`` (dist/, one process per device), or in this process when there is
 none.  The batch reads the previous pass's depths of every view (Jacobi),
 where the serial loop reads this pass's depths of the views before it
-(Gauss-Seidel), so the two schedules differ.  The row-tiled pass
-(``mesh_tiles > 1``) raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+(Gauss-Seidel), so the two schedules differ.
+
+With ``config.mesh_tiles > 1`` and a group, each view pass is row-tiled
+over n_t = min(mesh_tiles, ranks) ranks (``dist/tiles.py``, JAX's Phase B):
+every rank runs every view pass in the serial order, computes its rows and
+ends each pass with the whole state, equal to the untiled pass bit for bit.
+As in JAX, the pass runs untiled where n_t is 1, ``mesh_views`` is above 1
+or the height does not divide by n_t.
 """
 
 from __future__ import annotations
@@ -54,11 +59,6 @@ from ..io.scene import Scene, format_index
 from ..priors.edges import _resize_linear, connected_components, edge_segment
 from ..rng import DrawSource, Rooted, TorchDraws, fold_in
 from ..utils.profiling import Metrics, annotate, trace
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
 
 
 def rescale_nearest(arr: np.ndarray, new_hw) -> np.ndarray:
@@ -140,8 +140,6 @@ class SceneRunner:
         self.scene = scene
         self.config = config or SceneConfig()
         self.base_static = base_static or PMStatic()
-        if self.config.mesh_tiles > 1:
-            raise _not_ported("the row-tiled pass (mesh_tiles > 1)", "7")
         self.mono_planes = mono_planes or {}
         self.device = resolve_device(device)
         self.draws = (draws if draws is not None
@@ -152,10 +150,15 @@ class SceneRunner:
 
         self.group = group
         self.rank, self.n_ranks = group_rank(group), group_size(group)
-        if group is not None and self.n_ranks > self.config.mesh_views:
+        if group is not None and self.n_ranks > max(self.config.mesh_views,
+                                                    self.config.mesh_tiles):
             raise ValueError(
-                f"a group of {self.n_ranks} ranks needs mesh_views >= "
-                f"{self.n_ranks}, got {self.config.mesh_views}")
+                f"a group of {self.n_ranks} ranks needs mesh_views or "
+                f"mesh_tiles >= {self.n_ranks}, got "
+                f"{self.config.mesh_views} and {self.config.mesh_tiles}")
+        # the tile axis (dist.tiles): n_t = min(mesh_tiles, ranks), JAX's
+        # min(mesh_tiles, devices)
+        self.n_tiles = min(self.config.mesh_tiles, self.n_ranks)
         self.state: Dict[int, ViewState] = {}
         self.edge_cache: Dict[tuple, np.ndarray] = {}
         self.label_cache: Dict[tuple, np.ndarray] = {}
@@ -328,8 +331,21 @@ class SceneRunner:
                 kwargs["label"] = rescale_nearest(label, (H, W)).astype(
                     np.int32)
 
-        out = run_pass(ref_img, src_imgs, ref_cam, src_cams, static=static,
-                       dyn=dyn, draws=draws, device=self.device, **kwargs)
+        # Phase-B tile split (JAX's rule): tiled only when n_t > 1, the views
+        # axis is off and the height divides; untiled otherwise
+        tiled = (self.n_tiles > 1 and self.config.mesh_views <= 1
+                 and H % self.n_tiles == 0)
+        if tiled:
+            from ..dist.mesh import ViewMesh
+            from ..dist.tiles import make_tiled_pass
+
+            mesh = ViewMesh(self.group, self.rank, self.n_tiles, self.device)
+            out = make_tiled_pass(static, mesh)(
+                ref_img, src_imgs, ref_cam, src_cams, dyn, draws, **kwargs)
+        else:
+            out = run_pass(ref_img, src_imgs, ref_cam, src_cams,
+                           static=static, dyn=dyn, draws=draws,
+                           device=self.device, **kwargs)
 
         if out.weak_overflow is not None and int(out.weak_overflow) > 0:
             self.metrics.count("weak_budget_overflow_px",
@@ -342,7 +358,7 @@ class SceneRunner:
         self.state[rid] = ViewState(
             depth=host(out.depth), normal_world=host(out.normal_world),
             weak=host(out.weak), sel_views=sel, radius=host(out.radius))
-        if static.debug_dumps:
+        if static.debug_dumps and self.rank == 0:
             self._write_debug_dumps(problem, out)
 
     # ------------------------------------------------------------------

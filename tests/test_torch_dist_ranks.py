@@ -234,3 +234,80 @@ def test_cli_scene_mesh_views_two_ranks(scene_folder, tmp_path):
             read_dmb(out / f"{v:08d}" / "depths_geom.dmb"), st.depth)
     want = run_fusion(one.fusion_inputs(), "eth3d", device="cpu")[0]
     np.testing.assert_array_equal(pts, want)
+
+
+# ------------------------------------------------------ the row-tiled pass --
+
+TILE_CONFIG = dict(geometric_passes=1, seed=0, mesh_tiles=2)
+
+
+def test_tiled_scene_two_ranks_match_untiled(scene_folder, tmp_path):
+    """SceneRunner with mesh_tiles=2 over two gloo ranks, round 0 at 48x64
+    (FIRST_INIT, REFINE_ITER), every view pass row-tiled: every view's
+    state on every rank bitwise equal to mesh_tiles=1 in this process, and
+    rank 0's checkpoint byte-equal to it.  (The APD passes' tiling is held
+    pass by pass in tests/test_torch_tiles.py.)"""
+    outs = _launch(worker.scene_rank,
+                   (str(scene_folder), str(tmp_path / "tiles_ckpt"),
+                    TILE_CONFIG, STATIC), tmp_path)
+    one = SceneRunner(load_scene(scene_folder, max_src_views=2),
+                      SceneConfig(**dict(TILE_CONFIG, mesh_tiles=1)),
+                      PMStatic(**STATIC), verbose=False, device="cpu")
+    one.run(checkpoint_dir=tmp_path / "one_ckpt")
+    for r, out in enumerate(outs):
+        assert (out["rank"], out["size"]) == (r, 2)
+        assert out["iteration"] == one.iteration == 2
+        assert out["counters"] == one.metrics.summary()["counters"]
+        _assert_states_equal(out["state"], one)
+    a, b = tmp_path / "one_ckpt", tmp_path / "tiles_ckpt"
+    names = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert names == sorted(p.relative_to(b) for p in b.rglob("*")
+                           if p.is_file())
+    for name in names:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
+def test_cli_scene_mesh_tiles_two_ranks(scene_folder, tmp_path):
+    """``scene <folder> --device cpu --mesh-tiles 2`` runs two gloo ranks
+    (2 torch threads each) whose view passes are row-tiled: the APD.ply
+    and the depths equal the untiled schedule's in this process."""
+    out = tmp_path / "out"
+    argv = ["scene", str(scene_folder), "--device", "cpu", "--output",
+            str(out), "--iterations", "1", "--geometric-passes", "1",
+            "--max-src-views", "2", "--backend", "exact", "--mesh-tiles",
+            "2", "--checkpoint"]
+    torch.set_num_threads(2 * THREADS)
+    try:
+        assert t_cli(argv) == 0
+    finally:
+        torch.set_num_threads(THREADS)
+    pts, cols = read_ply(out / "APD.ply")
+    assert len(pts) > 0 and cols.shape == pts.shape
+    one = SceneRunner(load_scene(scene_folder, max_src_views=2),
+                      SceneConfig(geometric_passes=1, seed=0),
+                      PMStatic(max_iterations=1), verbose=False,
+                      device="cpu")
+    one.run()
+    for v, st in one.state.items():
+        np.testing.assert_array_equal(
+            read_dmb(out / f"{v:08d}" / "depths_geom.dmb"), st.depth)
+    want = run_fusion(one.fusion_inputs(), "eth3d", device="cpu")[0]
+    np.testing.assert_array_equal(pts, want)
+
+
+def test_run_views_sharded_two_ranks_match_batched_pass(tmp_path):
+    """run_views_sharded over two gloo ranks (two of four FIRST_INIT
+    problems each) returns, on both ranks, the whole batch's PassOutput
+    of make_batched_pass in this process, bit for bit."""
+    from dvpmvs_torch.dist import make_batched_pass
+    outs = _launch(worker.views_sharded_rank, (4,), tmp_path)
+    static, args = worker.views_batch(4)
+    want = worker._out_np(make_batched_pass(static, "cpu")(*args))
+    assert want["depth"].shape == (4, 24, 32)
+    for out in outs:
+        for f, w in want.items():
+            if w is None:
+                assert out[f] is None, f
+                continue
+            assert out[f].dtype == w.dtype, f
+            np.testing.assert_array_equal(out[f], w, err_msg=f)
