@@ -68,6 +68,7 @@ from ..kernels.weak import (AnchorResult, demote_detail, edge_complexity,
                             ransac_fit_plane)
 from ..kernels.warp_fused import tap_shifts
 from ..rng import DrawSource, fold_in, split
+from ..utils.profiling import annotate, count, recording, spanned
 from .packing import pack_ctx, pack_parity, unpack_parity
 from .rows import Rows, RowWindow
 from .state import PassOutput, PMState
@@ -139,6 +140,7 @@ def _commit(state: PMState, win: RowWindow, mask, plane, cost, sel, vw,
                          view_weights=out[3])
 
 
+@spanned("engine/propagate")
 def _propagate_color_strong(state: PMState, color: int, it: int, path_it,
                             draws: DrawSource, ctx, ctx_pk, ref_cam,
                             src_cams, static: PMStatic, dyn: PMDynamic, xs,
@@ -331,6 +333,7 @@ def _band_compact(weak_pk: torch.Tensor, K_w: int):
     return flat_idx, ok_k
 
 
+@spanned("weak/propagate")
 def _propagate_color_weak(state: PMState, anchors: AnchorResult, fit_plane,
                           color: int, it: int, path_it, draws: DrawSource,
                           ctx, ctx_pk, ctx_yzl, ctx_yzl_pk, gctx, ref_img,
@@ -572,6 +575,7 @@ def _halo(static: PMStatic) -> int:
     return shift * max(2 + min(static.extend_rounds, 3), 3)
 
 
+@spanned("engine/pass")
 def run_pass(
     ref_img,                       # [H, W] grayscale 0..255
     src_imgs,                      # [V, H, W]
@@ -594,144 +598,162 @@ def run_pass(
     unless the caller asks for the CPU).  ``draws`` returns its numbers on
     that device.  With ``rows`` this rank computes its rows of a row-tiled
     pass (``dist/tiles.py``) and returns the whole output, as every rank
-    of it does."""
-    dev = resolve_device(device)
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-    ref_img = f32(ref_img)
-    src_imgs = f32(src_imgs).contiguous()
-    ref_cam, src_cams = ref_cam.to(dev), src_cams.to(dev)
+    of it does.
 
-    H, W = ref_img.shape
-    V = src_imgs.shape[0]
-    xs, ys = _grid(H, W, dev)
-    rx = (xs - ref_cam.cx) / ref_cam.fx
-    ry = (ys - ref_cam.cy) / ref_cam.fy
-    ray = _ray(rx, ry)
-    parity = (xs.to(torch.int32) + ys.to(torch.int32)) % 2
-    if radius_map is not None:
-        radius_map = f32(radius_map)
-    win = (RowWindow.whole(H) if rows is None
-           else RowWindow(H, rows, _halo(static)))
-    rw = None if win.is_whole else win      # a row window, or the image
-    take = win.take
+    The pass is the span ``engine/pass`` (``utils/profiling.py``), its
+    stages ``engine/setup``, ``weak/anchors``, ``engine/propagate`` and
+    ``weak/fit`` and ``weak/propagate`` (one each a half-iteration),
+    ``engine/post``; ``weak/anchors`` counts ``weak.pixels`` and
+    ``weak.reliable`` while a profiler records."""
+    with annotate("engine/setup"):
+        dev = resolve_device(device)
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        ref_img = f32(ref_img)
+        src_imgs = f32(src_imgs).contiguous()
+        ref_cam, src_cams = ref_cam.to(dev), src_cams.to(dev)
 
-    ctx = build_cost_context(
-        ref_img, src_imgs, ref_cam, src_cams,
-        sigma_spatial=dyn.sigma_spatial, sigma_color=dyn.sigma_color,
-        radius_map=radius_map if static.use_radius else None,
-        strong_radius=static.strong_radius, backend=static.cost_backend,
-        rows=win)
-    # checkerboard-packed context views for the half-iteration batches
-    ctx_pks = ((pack_ctx(ctx, 0), pack_ctx(ctx, 1))
-               if static.cost_backend == "fused" else (None, None))
-    gctx = None
-    if static.geom_consistency and src_depths is not None:
-        gctx = build_geom_context(f32(src_depths), ref_cam, src_cams)
+        H, W = ref_img.shape
+        V = src_imgs.shape[0]
+        xs, ys = _grid(H, W, dev)
+        rx = (xs - ref_cam.cx) / ref_cam.fx
+        ry = (ys - ref_cam.cy) / ref_cam.fy
+        ray = _ray(rx, ry)
+        parity = (xs.to(torch.int32) + ys.to(torch.int32)) % 2
+        if radius_map is not None:
+            radius_map = f32(radius_map)
+        win = (RowWindow.whole(H) if rows is None
+               else RowWindow(H, rows, _halo(static)))
+        rw = None if win.is_whole else win      # a row window, or the image
+        take = win.take
 
-    if init_weak is None:
-        weak = torch.full((H, W), int(PixelState.STRONG), dtype=torch.int8,
-                          device=dev)
-    else:
-        weak = torch.as_tensor(init_weak, device=dev).to(torch.int8)
-    if init_sel_views is None:
-        sel_views = torch.zeros((H, W, V), dtype=torch.bool, device=dev)
-    else:
-        sel_views = torch.as_tensor(init_sel_views, device=dev).to(torch.bool)
-    radius = (radius_map if radius_map is not None
-              else torch.zeros((H, W), device=dev))
-
-    root = ()
-    k_init, k_weak, k_loop = (split(root, 3, i) for i in range(3))
-
-    # the edge-adaptive strong branch runs whenever an edge map exists
-    edge_dist = None
-    if static.use_edge and edge is not None:
-        edge = torch.as_tensor(edge, device=dev).to(torch.bool)
-        edge_dist = edge_ray_distance(edge)
-    if label is not None:
-        label = torch.as_tensor(label, device=dev)
-
-    # ---- weak-machinery precomputation ----
-    use_apd = static.use_APD
-    ctx_yzl = anchors = complexity = label_dist = None
-    ctx_yzl_pks = (None, None)
-    if use_apd:
-        ctx_yzl = build_cost_context(
+        ctx = build_cost_context(
             ref_img, src_imgs, ref_cam, src_cams,
             sigma_spatial=dyn.sigma_spatial, sigma_color=dyn.sigma_color,
+            radius_map=radius_map if static.use_radius else None,
             strong_radius=static.strong_radius, backend=static.cost_backend,
-            color_only_weights=True, rows=win)
-        if static.cost_backend == "fused":
-            ctx_yzl_pks = (pack_ctx(ctx_yzl, 0), pack_ctx(ctx_yzl, 1))
-        if static.use_edge and edge is not None:
-            complexity = edge_complexity(edge, static.strong_radius)
-        if static.use_label and label is not None:
-            label_dist = label_boundary_distance(label)
-        if static.state == RunState.REFINE_INIT and static.use_detail:
-            weak = demote_detail(
-                weak, edge if static.use_edge and edge is not None else None,
-                label if static.use_label and label is not None else None)
+            rows=win)
+        # checkerboard-packed context views for the half-iteration batches
+        ctx_pks = ((pack_ctx(ctx, 0), pack_ctx(ctx, 1))
+                   if static.cost_backend == "fused" else (None, None))
+        gctx = None
+        if static.geom_consistency and src_depths is not None:
+            gctx = build_geom_context(f32(src_depths), ref_cam, src_cams)
 
-    # ---- initialization (RandomInitialization, APD.cu:1273-1309) ----
-    # (on the compute rows, then exchanged: a row window's exchange makes
-    # the state whole on every rank)
-    if static.state == RunState.FIRST_INIT:
-        rand_d = take(random_depth(draws, split(k_init, 2, 0), (H, W),
-                                   dyn.depth_min, dyn.depth_max))
-        rand_n = visibility_prior_normal(draws, split(k_init, 2, 1), rand_d,
-                                         take(sel_views), take(rx), take(ry),
-                                         ref_cam, src_cams, full_hw=(H, W),
-                                         pk=take)
-        plane = plane_from_normal_depth(rand_n, rand_d, take(xs), take(ys),
-                                        ref_cam)
-        if init_plane_world is not None:
-            init_plane_world = take(f32(init_plane_world))
-            prior_d = init_plane_world[..., 3]
-            ok = (prior_d >= dyn.depth_min) & (prior_d <= dyn.depth_max)
-            prior_plane = plane_from_world(init_plane_world, take(xs),
-                                           take(ys), ref_cam)
-            plane = torch.where(ok[..., None], prior_plane, plane)
-        cost, sel_views = _initial_cost_first(ctx, plane, static.top_k)
-        plane = win.commit(plane)
-    else:
-        if init_plane_world is None or init_sel_views is None:
-            raise ValueError("REFINE passes need init_plane_world and "
-                             "init_sel_views")
-        plane = plane_from_world(f32(init_plane_world), xs, ys, ref_cam)
-        cost, sel_views = _initial_cost_refine(ctx, take(plane),
-                                               take(sel_views))
-    cost, sel_views = win.commit(cost), win.commit(sel_views)
+        if init_weak is None:
+            weak = torch.full((H, W), int(PixelState.STRONG),
+                              dtype=torch.int8, device=dev)
+        else:
+            weak = torch.as_tensor(init_weak, device=dev).to(torch.int8)
+        if init_sel_views is None:
+            sel_views = torch.zeros((H, W, V), dtype=torch.bool, device=dev)
+        else:
+            sel_views = torch.as_tensor(init_sel_views,
+                                        device=dev).to(torch.bool)
+        radius = (radius_map if radius_map is not None
+                  else torch.zeros((H, W), device=dev))
+
+        root = ()
+        k_init, k_weak, k_loop = (split(root, 3, i) for i in range(3))
+
+        # the edge-adaptive strong branch runs whenever an edge map exists
+        edge_dist = None
+        if static.use_edge and edge is not None:
+            edge = torch.as_tensor(edge, device=dev).to(torch.bool)
+            edge_dist = edge_ray_distance(edge)
+        if label is not None:
+            label = torch.as_tensor(label, device=dev)
+
+        # ---- weak-machinery precomputation ----
+        use_apd = static.use_APD
+        ctx_yzl = anchors = complexity = label_dist = None
+        ctx_yzl_pks = (None, None)
+        if use_apd:
+            ctx_yzl = build_cost_context(
+                ref_img, src_imgs, ref_cam, src_cams,
+                sigma_spatial=dyn.sigma_spatial, sigma_color=dyn.sigma_color,
+                strong_radius=static.strong_radius,
+                backend=static.cost_backend, color_only_weights=True,
+                rows=win)
+            if static.cost_backend == "fused":
+                ctx_yzl_pks = (pack_ctx(ctx_yzl, 0), pack_ctx(ctx_yzl, 1))
+            if static.use_edge and edge is not None:
+                complexity = edge_complexity(edge, static.strong_radius)
+            if static.use_label and label is not None:
+                label_dist = label_boundary_distance(label)
+            if static.state == RunState.REFINE_INIT and static.use_detail:
+                weak = demote_detail(
+                    weak,
+                    edge if static.use_edge and edge is not None else None,
+                    label if static.use_label and label is not None else None)
+
+        # ---- initialization (RandomInitialization, APD.cu:1273-1309) ----
+        # (on the compute rows, then exchanged: a row window's exchange makes
+        # the state whole on every rank)
+        if static.state == RunState.FIRST_INIT:
+            rand_d = take(random_depth(draws, split(k_init, 2, 0), (H, W),
+                                       dyn.depth_min, dyn.depth_max))
+            rand_n = visibility_prior_normal(
+                draws, split(k_init, 2, 1), rand_d, take(sel_views), take(rx),
+                take(ry), ref_cam, src_cams, full_hw=(H, W), pk=take)
+            plane = plane_from_normal_depth(rand_n, rand_d, take(xs),
+                                            take(ys), ref_cam)
+            if init_plane_world is not None:
+                init_plane_world = take(f32(init_plane_world))
+                prior_d = init_plane_world[..., 3]
+                ok = (prior_d >= dyn.depth_min) & (prior_d <= dyn.depth_max)
+                prior_plane = plane_from_world(init_plane_world, take(xs),
+                                               take(ys), ref_cam)
+                plane = torch.where(ok[..., None], prior_plane, plane)
+            cost, sel_views = _initial_cost_first(ctx, plane, static.top_k)
+            plane = win.commit(plane)
+        else:
+            if init_plane_world is None or init_sel_views is None:
+                raise ValueError("REFINE passes need init_plane_world and "
+                                 "init_sel_views")
+            plane = plane_from_world(f32(init_plane_world), xs, ys, ref_cam)
+            cost, sel_views = _initial_cost_refine(ctx, take(plane),
+                                                   take(sel_views))
+        cost, sel_views = win.commit(cost), win.commit(sel_views)
 
     # anchor generation (GenNeighbours + NeigbourUpdate)
     weak_overflow = tap_fields = patch_off = None
     if use_apd:
-        if static.exact_deformable:
-            patch_off = patch_candidates(ref_img, sel_views, dyn.sigma_color,
-                                         weak_radius=static.weak_radius)
-        elif static.anchor_taps > 1:
-            # the sparse-patch taps: per-view visibility-aware candidates
-            # (APD.cu:3744-3794), packed into per-anchor-position words
-            # once a pass
-            patch_off = patch_candidates(ref_img, sel_views, dyn.sigma_color,
-                                         weak_radius=static.weak_radius)
-            tap_fields = pack_tap_fields(ref_img, patch_off,
-                                         static.anchor_taps - 1)
-        depth_range = float(np.float32(dyn.depth_max)
-                            - np.float32(dyn.depth_min))
-        anchors = find_anchors(
-            weak, plane, ref_cam, draws, k_weak,
-            rotate_time=static.rotate_time,
-            edge=edge if static.use_edge else None, complexity=complexity,
-            ransac_threshold=dyn.ransac_threshold, depth_range=depth_range,
-            use_limit=static.use_limit,
-            label=label if static.use_label else None,
-            label_dist=label_dist, rows=rw)
-        weak_c = take(weak)
-        weak = win.commit(torch.where(
-            (weak_c == PixelState.WEAK) & ~anchors.reliable,
-            torch.full_like(weak_c, int(PixelState.UNKNOWN)), weak_c))
-        if not static.exact_deformable:
-            weak_overflow = _weak_overflow(weak, static)
+        with annotate("weak/anchors"):
+            if static.exact_deformable:
+                patch_off = patch_candidates(
+                    ref_img, sel_views, dyn.sigma_color,
+                    weak_radius=static.weak_radius)
+            elif static.anchor_taps > 1:
+                # the sparse-patch taps: per-view visibility-aware candidates
+                # (APD.cu:3744-3794), packed into per-anchor-position words
+                # once a pass
+                patch_off = patch_candidates(
+                    ref_img, sel_views, dyn.sigma_color,
+                    weak_radius=static.weak_radius)
+                tap_fields = pack_tap_fields(ref_img, patch_off,
+                                             static.anchor_taps - 1)
+            depth_range = float(np.float32(dyn.depth_max)
+                                - np.float32(dyn.depth_min))
+            anchors = find_anchors(
+                weak, plane, ref_cam, draws, k_weak,
+                rotate_time=static.rotate_time,
+                edge=edge if static.use_edge else None, complexity=complexity,
+                ransac_threshold=dyn.ransac_threshold, depth_range=depth_range,
+                use_limit=static.use_limit,
+                label=label if static.use_label else None,
+                label_dist=label_dist, rows=rw)
+            weak_c = take(weak)
+            weak_in = weak_c == PixelState.WEAK
+            if recording():
+                # the compute rows' weak pixels, and those with reliable
+                # anchors: masks, summed when the record is read
+                count("weak.pixels", weak_in)
+                count("weak.reliable", weak_in & anchors.reliable)
+            weak = win.commit(torch.where(
+                weak_in & ~anchors.reliable,
+                torch.full_like(weak_c, int(PixelState.UNKNOWN)), weak_c))
+            if not static.exact_deformable:
+                weak_overflow = _weak_overflow(weak, static)
 
     state = PMState(plane=plane, cost=cost, sel_views=sel_views,
                     view_weights=torch.zeros((H, W, V), device=dev),
@@ -746,15 +768,16 @@ def run_pass(
                 ref_cam, src_cams, static, dyn, xs, ys, rx, ry, ray, parity,
                 edge=edge, edge_dist=edge_dist, win=win)
         if use_apd:
-            fit_plane, new_radius = ransac_fit_plane(
-                anchors, state.plane, state.weak, ref_cam, draws,
-                fold_in(path_it, 3), use_radius=static.use_radius,
-                strong_radius=static.strong_radius, edge_dist=edge_dist,
-                label_dist=label_dist, rows=rw)
-            if static.use_radius and new_radius is not None:
-                state = state.replace(radius=win.commit(torch.where(
-                    take(state.weak) == PixelState.WEAK, new_radius,
-                    take(state.radius))))
+            with annotate("weak/fit"):
+                fit_plane, new_radius = ransac_fit_plane(
+                    anchors, state.plane, state.weak, ref_cam, draws,
+                    fold_in(path_it, 3), use_radius=static.use_radius,
+                    strong_radius=static.strong_radius, edge_dist=edge_dist,
+                    label_dist=label_dist, rows=rw)
+                if static.use_radius and new_radius is not None:
+                    state = state.replace(radius=win.commit(torch.where(
+                        take(state.weak) == PixelState.WEAK, new_radius,
+                        take(state.radius))))
             for color in (0, 1):
                 state = _propagate_color_weak(
                     state, anchors, fit_plane, color, it, path_it, draws,
@@ -764,43 +787,46 @@ def run_pass(
                     win=win)
 
     # ---- post: depth/normal extraction + filters ----
-    depth = depth_from_plane(state.plane, xs, ys, ref_cam)
-    normal_ref = state.plane[..., :3]
-    depth = median_filter_depth(depth, state.weak, state.cost, rows=rw)
-    weak_new = depth_to_weak(
-        ctx, gctx, dyn.geom_factor, normal_ref, depth, state.sel_views,
-        state.view_weights, xs, ys, ref_cam, src_cams,
-        dyn.depth_min, dyn.depth_max, dyn.weak_peak_radius,
-        return_curve=static.debug_dumps, rows=rw)
-    cost_line = None
-    if static.debug_dumps:
-        weak_new, cost_line = weak_new
-        cost_line = win.commit(cost_line, 1)
-    weak_new = win.commit(weak_new)
-    depth = win.commit(local_refine(
-        ctx, gctx, dyn.geom_factor, normal_ref, depth, state.sel_views,
-        state.view_weights, xs, ys, ref_cam, src_cams,
-        dyn.depth_min, dyn.depth_max, rows=rw))
+    with annotate("engine/post"):
+        depth = depth_from_plane(state.plane, xs, ys, ref_cam)
+        normal_ref = state.plane[..., :3]
+        depth = median_filter_depth(depth, state.weak, state.cost, rows=rw)
+        weak_new = depth_to_weak(
+            ctx, gctx, dyn.geom_factor, normal_ref, depth, state.sel_views,
+            state.view_weights, xs, ys, ref_cam, src_cams,
+            dyn.depth_min, dyn.depth_max, dyn.weak_peak_radius,
+            return_curve=static.debug_dumps, rows=rw)
+        cost_line = None
+        if static.debug_dumps:
+            weak_new, cost_line = weak_new
+            cost_line = win.commit(cost_line, 1)
+        weak_new = win.commit(weak_new)
+        depth = win.commit(local_refine(
+            ctx, gctx, dyn.geom_factor, normal_ref, depth, state.sel_views,
+            state.view_weights, xs, ys, ref_cam, src_cams,
+            dyn.depth_min, dyn.depth_max, rows=rw))
 
-    # host-extraction semantics (main.cpp:300-308): out-of-range -> 0/UNKNOWN
-    in_range = (depth >= dyn.depth_min) & (depth <= dyn.depth_max)
-    depth = torch.where(in_range, depth, torch.zeros_like(depth))
-    weak_new = torch.where(in_range, weak_new,
-                           torch.full_like(weak_new, int(PixelState.UNKNOWN)))
+        # host-extraction semantics (main.cpp:300-308): out-of-range ->
+        # 0/UNKNOWN
+        in_range = (depth >= dyn.depth_min) & (depth <= dyn.depth_max)
+        depth = torch.where(in_range, depth, torch.zeros_like(depth))
+        weak_new = torch.where(
+            in_range, weak_new,
+            torch.full_like(weak_new, int(PixelState.UNKNOWN)))
 
-    normal_world = fmath.rmatvec(ref_cam.R, normal_ref)
-    radius_out = torch.where(state.radius == 0,
-                             torch.full_like(state.radius,
-                                             float(static.strong_radius)),
-                             state.radius)
-    dbg = {}
-    if static.debug_dumps:
-        dbg["cost_line"] = cost_line
-        if use_apd:
-            dbg["anchors_xy"] = win.commit(anchors.coords, 1)
-            dbg["anchors_valid"] = win.commit(anchors.valid, 1)
-    return PassOutput(depth=depth, normal_world=normal_world,
-                      cost=state.cost, weak=weak_new,
-                      sel_views=state.sel_views,
-                      view_weights=state.view_weights, radius=radius_out,
-                      weak_overflow=weak_overflow, **dbg)
+        normal_world = fmath.rmatvec(ref_cam.R, normal_ref)
+        radius_out = torch.where(state.radius == 0,
+                                 torch.full_like(state.radius,
+                                                 float(static.strong_radius)),
+                                 state.radius)
+        dbg = {}
+        if static.debug_dumps:
+            dbg["cost_line"] = cost_line
+            if use_apd:
+                dbg["anchors_xy"] = win.commit(anchors.coords, 1)
+                dbg["anchors_valid"] = win.commit(anchors.valid, 1)
+        return PassOutput(depth=depth, normal_world=normal_world,
+                          cost=state.cost, weak=weak_new,
+                          sel_views=state.sel_views,
+                          view_weights=state.view_weights, radius=radius_out,
+                          weak_overflow=weak_overflow, **dbg)

@@ -58,7 +58,7 @@ from ..io.dmb import read_bin_mat, read_dmb, write_bin_mat
 from ..io.scene import Scene, format_index
 from ..priors.edges import _resize_linear, connected_components, edge_segment
 from ..rng import DrawSource, Rooted, TorchDraws, fold_in
-from ..utils.profiling import Metrics, annotate, trace
+from ..utils.profiling import VIEW_PASS, Metrics, annotate, spanned, trace
 
 
 def rescale_nearest(arr: np.ndarray, new_hw) -> np.ndarray:
@@ -269,67 +269,74 @@ class SceneRunner:
                       self._BUDGET_BUCKETS[-1])
         return static.replace(weak_budget_frac=bucket)
 
+    @spanned(VIEW_PASS)
     def run_view_pass(self, problem, static: PMStatic, dyn: PMDynamic,
                       scale_size: int, draws: DrawSource) -> None:
+        """One pass of one view: the host's preparation (``runner/prepare``)
+        and priors (``runner/priors``), ``run_pass``, then the host copies
+        and the visibility cleanup (``runner/finish``), each a span of the
+        view pass (``utils/profiling.py``)."""
         rid = problem.ref_image_id
-        static = self._weak_budget_for(static, [rid])
-        ref_img, ref_cam = self._scaled_view(rid, scale_size)
-        H, W = ref_img.shape
-        src_list = []
-        for sid in problem.src_image_ids:
-            simg, _ = self._scaled_view(sid, scale_size)
-            # pad/crop source to the ref extent (APD.cpp:1071-1082)
-            canvas = np.zeros((H, W), np.float32)
-            hh = min(H, simg.shape[0])
-            ww = min(W, simg.shape[1])
-            canvas[:hh, :ww] = simg[:hh, :ww]
-            src_list.append(canvas)
-        src_imgs = np.stack(src_list)
-        src_cams = stack_cameras(
-            [self._scaled_view(sid, scale_size)[1]
-             for sid in problem.src_image_ids])
-
-        dyn = dyn.replace(
-            depth_min=float(np.float32(float(ref_cam.depth_min) * 0.6)),
-            depth_max=float(np.float32(float(ref_cam.depth_max) * 1.2)))
-
-        kwargs = {}
-        st = self.state.get(rid)
-        if static.state != RunState.FIRST_INIT:
-            assert st is not None, f"view {rid}: no previous state"
-            depth = rescale_nearest(st.depth, (H, W))
-            normal = rescale_nearest(st.normal_world, (H, W))
-            kwargs["init_plane_world"] = np.concatenate(
-                [normal, depth[..., None]], -1)
-            kwargs["init_sel_views"] = rescale_nearest(
-                st.sel_views.astype(np.uint8), (H, W)).astype(bool)
-            kwargs["init_weak"] = rescale_nearest(st.weak, (H, W))
-            if static.use_radius:
-                kwargs["radius_map"] = rescale_nearest(st.radius, (H, W))
-        elif rid in self.mono_planes:
-            mp = self.mono_planes[rid]
-            if mp.shape[:2] != (H, W):
-                mp = np.stack([rescale_nearest(mp[..., i], (H, W))
-                               for i in range(4)], -1)
-            kwargs["init_plane_world"] = mp
-
-        if static.geom_consistency:
-            sds = []
+        with annotate("runner/prepare"):
+            static = self._weak_budget_for(static, [rid])
+            ref_img, ref_cam = self._scaled_view(rid, scale_size)
+            H, W = ref_img.shape
+            src_list = []
             for sid in problem.src_image_ids:
-                sd = self.state.get(sid)
-                d = sd.depth if sd is not None else np.zeros_like(ref_img)
-                sds.append(rescale_nearest(d, (H, W)))
-            kwargs["src_depths"] = np.stack(sds)
+                simg, _ = self._scaled_view(sid, scale_size)
+                # pad/crop source to the ref extent (APD.cpp:1071-1082)
+                canvas = np.zeros((H, W), np.float32)
+                hh = min(H, simg.shape[0])
+                ww = min(W, simg.shape[1])
+                canvas[:hh, :ww] = simg[:hh, :ww]
+                src_list.append(canvas)
+            src_imgs = np.stack(src_list)
+            src_cams = stack_cameras(
+                [self._scaled_view(sid, scale_size)[1]
+                 for sid in problem.src_image_ids])
 
-        if static.use_edge or (static.use_APD and static.use_label):
-            edge, label = self._edges_for(
-                rid, scale_size,
-                need_label=static.use_APD and static.use_label)
-            if edge is not None:
-                kwargs["edge"] = rescale_nearest(edge, (H, W)) > 0
-            if label is not None:
-                kwargs["label"] = rescale_nearest(label, (H, W)).astype(
-                    np.int32)
+            dyn = dyn.replace(
+                depth_min=float(np.float32(float(ref_cam.depth_min) * 0.6)),
+                depth_max=float(np.float32(float(ref_cam.depth_max) * 1.2)))
+
+            kwargs = {}
+            st = self.state.get(rid)
+            if static.state != RunState.FIRST_INIT:
+                assert st is not None, f"view {rid}: no previous state"
+                depth = rescale_nearest(st.depth, (H, W))
+                normal = rescale_nearest(st.normal_world, (H, W))
+                kwargs["init_plane_world"] = np.concatenate(
+                    [normal, depth[..., None]], -1)
+                kwargs["init_sel_views"] = rescale_nearest(
+                    st.sel_views.astype(np.uint8), (H, W)).astype(bool)
+                kwargs["init_weak"] = rescale_nearest(st.weak, (H, W))
+                if static.use_radius:
+                    kwargs["radius_map"] = rescale_nearest(st.radius, (H, W))
+            elif rid in self.mono_planes:
+                mp = self.mono_planes[rid]
+                if mp.shape[:2] != (H, W):
+                    mp = np.stack([rescale_nearest(mp[..., i], (H, W))
+                                   for i in range(4)], -1)
+                kwargs["init_plane_world"] = mp
+
+            if static.geom_consistency:
+                sds = []
+                for sid in problem.src_image_ids:
+                    sd = self.state.get(sid)
+                    d = sd.depth if sd is not None else np.zeros_like(ref_img)
+                    sds.append(rescale_nearest(d, (H, W)))
+                kwargs["src_depths"] = np.stack(sds)
+
+        with annotate("runner/priors"):
+            if static.use_edge or (static.use_APD and static.use_label):
+                edge, label = self._edges_for(
+                    rid, scale_size,
+                    need_label=static.use_APD and static.use_label)
+                if edge is not None:
+                    kwargs["edge"] = rescale_nearest(edge, (H, W)) > 0
+                if label is not None:
+                    kwargs["label"] = rescale_nearest(label, (H, W)).astype(
+                        np.int32)
 
         # Phase-B tile split (JAX's rule): tiled only when n_t > 1, the views
         # axis is off and the height divides; untiled otherwise
@@ -347,19 +354,22 @@ class SceneRunner:
                            static=static, dyn=dyn, draws=draws,
                            device=self.device, **kwargs)
 
-        if out.weak_overflow is not None and int(out.weak_overflow) > 0:
-            self.metrics.count("weak_budget_overflow_px",
-                               int(out.weak_overflow))
-            self._log(f"view {rid}: weak-compaction budget overflow "
-                      f"{int(out.weak_overflow)} px fell back to "
-                      f"center-window cost (raise weak_budget_frac)")
-        host = lambda t: t.cpu().numpy()
-        sel = visibility_cleanup(host(out.sel_views), scale_size)
-        self.state[rid] = ViewState(
-            depth=host(out.depth), normal_world=host(out.normal_world),
-            weak=host(out.weak), sel_views=sel, radius=host(out.radius))
-        if static.debug_dumps and self.rank == 0:
-            self._write_debug_dumps(problem, out)
+        with annotate("runner/finish"):
+            # one read of the device's count (a copy to the host)
+            overflow = (0 if out.weak_overflow is None
+                        else int(out.weak_overflow))
+            if overflow > 0:
+                self.metrics.count("weak_budget_overflow_px", overflow)
+                self._log(f"view {rid}: weak-compaction budget overflow "
+                          f"{overflow} px fell back to "
+                          f"center-window cost (raise weak_budget_frac)")
+            host = lambda t: t.cpu().numpy()
+            sel = visibility_cleanup(host(out.sel_views), scale_size)
+            self.state[rid] = ViewState(
+                depth=host(out.depth), normal_world=host(out.normal_world),
+                weak=host(out.weak), sel_views=sel, radius=host(out.radius))
+            if static.debug_dumps and self.rank == 0:
+                self._write_debug_dumps(problem, out)
 
     # ------------------------------------------------------------------
     def _write_debug_dumps(self, problem, out) -> None:

@@ -1,0 +1,10 @@
+"""Device idle ms a traced pass while the host is in the self time of the
+program's ``engine/post`` span (depth extraction, median filter,
+``depth_to_weak``, ``local_refine``, the outputs), by exact overlap with
+the device's gaps (``program_spans.py``)."""
+
+from mvsbench.program_spans import stage_idle_ms
+
+
+def read(rec):
+    return stage_idle_ms(rec, "engine.post_idle_ms_per_pass")
