@@ -58,7 +58,8 @@ from ..io.dmb import read_bin_mat, read_dmb, write_bin_mat
 from ..io.scene import Scene, format_index
 from ..priors.edges import _resize_linear, connected_components, edge_segment
 from ..rng import DrawSource, Rooted, TorchDraws, fold_in
-from ..utils.profiling import VIEW_PASS, Metrics, annotate, spanned, trace
+from ..utils.profiling import (VIEW_PASS, Metrics, annotate, count,
+                               spanned, trace)
 
 
 def rescale_nearest(arr: np.ndarray, new_hw) -> np.ndarray:
@@ -162,6 +163,9 @@ class SceneRunner:
         self.state: Dict[int, ViewState] = {}
         self.edge_cache: Dict[tuple, np.ndarray] = {}
         self.label_cache: Dict[tuple, np.ndarray] = {}
+        # the scaled views of the round's scale: (image id, scale size) ->
+        # (float32 image, Camera), filled by _scaled_view
+        self.view_cache: Dict[tuple, tuple] = {}
         self.verbose = verbose
         self.iteration = 0
         self.metrics = Metrics()
@@ -206,12 +210,30 @@ class SceneRunner:
             dist.barrier(group=self.group)
 
     def _scaled_view(self, image_id: int, scale_size: int):
-        img = self.scene.images[image_id]
+        """The view's image at 1/``scale_size`` (bilinear, cast once to
+        float32, as ``run_pass`` would) and its camera, computed once a
+        scale: a request at another scale drops the cached views first,
+        since rounds only go from coarse to fine.  Every caller shares the
+        image and only reads it; on the CPU ``run_pass`` wraps it without
+        a copy and writes nothing into it.  While a profiler records it
+        counts ``runner.views`` and, served from the cache,
+        ``runner.view_hits``."""
+        count("runner.views", 1)
+        key = (image_id, scale_size)
+        view = self.view_cache.get(key)
+        if view is not None:
+            count("runner.view_hits", 1)
+            return view
+        if self.view_cache and next(iter(self.view_cache))[1] != scale_size:
+            self.view_cache.clear()
+        img = self.scene.images[image_id].astype(np.float32)
         H, W = img.shape
         nh, nw = round(H / scale_size), round(W / scale_size)
-        simg = _resize_linear(img.astype(np.float32), (nh, nw))
+        if (nh, nw) != (H, W):      # at full size the resize is the identity
+            img = _resize_linear(img, (nh, nw)).astype(np.float32)
         cam = scale_camera(self.scene.cameras[image_id], nw / W, nh / H)
-        return simg, cam
+        view = self.view_cache[key] = (img, cam)
+        return view
 
     def _edges_for(self, image_id: int, scale_size: int, need_label: bool):
         scale = 0
@@ -281,19 +303,18 @@ class SceneRunner:
             static = self._weak_budget_for(static, [rid])
             ref_img, ref_cam = self._scaled_view(rid, scale_size)
             H, W = ref_img.shape
-            src_list = []
+            src_list, cam_list = [], []
             for sid in problem.src_image_ids:
-                simg, _ = self._scaled_view(sid, scale_size)
+                simg, scam = self._scaled_view(sid, scale_size)
                 # pad/crop source to the ref extent (APD.cpp:1071-1082)
                 canvas = np.zeros((H, W), np.float32)
                 hh = min(H, simg.shape[0])
                 ww = min(W, simg.shape[1])
                 canvas[:hh, :ww] = simg[:hh, :ww]
                 src_list.append(canvas)
+                cam_list.append(scam)
             src_imgs = np.stack(src_list)
-            src_cams = stack_cameras(
-                [self._scaled_view(sid, scale_size)[1]
-                 for sid in problem.src_image_ids])
+            src_cams = stack_cameras(cam_list)
 
             dyn = dyn.replace(
                 depth_min=float(np.float32(float(ref_cam.depth_min) * 0.6)),
@@ -596,19 +617,18 @@ class SceneRunner:
                 ref_imgs.append(pad_hw(rimg))
                 ref_cams.append(rcam.to(dev))
                 srcs = list(p.src_image_ids)
-                pad_ids = srcs + [srcs[-1]] * (V - len(srcs))
-                simgs = []
+                simgs, scams = [], []
                 for sid in srcs:
-                    sim, _ = self._scaled_view(sid, scale_size)
+                    sim, scam = self._scaled_view(sid, scale_size)
                     canvas = np.zeros((H, W), np.float32)
                     hh, ww = min(H, sim.shape[0]), min(W, sim.shape[1])
                     canvas[:hh, :ww] = sim[:hh, :ww]
                     simgs.append(canvas)
+                    scams.append(scam)
                 simgs += [np.zeros((H, W), np.float32)] * (V - len(srcs))
+                scams += [scams[-1]] * (V - len(srcs))
                 src_imgs.append(np.stack(simgs))
-                src_cams.append(stack_cameras(
-                    [self._scaled_view(sid, scale_size)[1]
-                     for sid in pad_ids]).to(dev))
+                src_cams.append(stack_cameras(scams).to(dev))
                 dyns.append(dyn.replace(
                     depth_min=float(np.float32(float(rcam.depth_min) * 0.6)),
                     depth_max=float(np.float32(float(rcam.depth_max) * 1.2))))

@@ -1,8 +1,8 @@
 """The port's spans and counters (``dvpmvs_torch/utils/profiling.py``):
 nothing recorded without a profiler, the same state with one, every stage
 of a view pass nested under it, the record on the profiler's clock, the
-weak-pixel counters against the masks, and (on the card) a kernel launched
-inside a stage.
+weak-pixel counters against the masks, the runner's scaled-view counters,
+and (on the card) a kernel launched inside a stage.
 
 Imports nothing of JAX, so the card's test command can run it:
 
@@ -182,7 +182,18 @@ def test_weak_counters_equal_the_masks(traced):
     assert pixels > 0 and 0 < reliable < pixels
     assert rec.total("weak.pixels") == pixels
     assert rec.total("weak.reliable") == reliable
-    assert {c.view_pass for c in rec.counts} == {1}
+    assert {c.view_pass for c in rec.counts
+            if c.name.startswith("weak.")} == {1}
+
+
+def test_runner_counters_count_the_scaled_views(traced):
+    """Each pass asks for its reference and sources once; round 1 runs at
+    another scale than round 0, so neither pass finds its views cached."""
+    rec = traced["rec"]
+    for vp in (0, 1):
+        mine = [c for c in rec.counts if c.view_pass == vp]
+        assert sum(c.value for c in mine if c.name == "runner.views") == NV
+        assert not [c for c in mine if c.name == "runner.view_hits"]
 
 
 def test_threads_nest_their_own_spans():
