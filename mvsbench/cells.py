@@ -4,19 +4,25 @@
 (``workloads``), its configuration (``configs``: a file under
 ``mvsbench/configs/``) and its traffic (``mvsbench/traffic/<traffic>.json``),
 and every metric; a per-layer metric is read by ``mvsbench/metrics/<name>.py``.
-A new cell, configuration, traffic mix or per-layer metric is new files and
-new entries: nothing here changes.
+The traffic names the stage its window drives (``stage``, ``view_pass``
+where it names none), which ``mvsbench/stages/<stage>.py`` supplies.  A new
+cell, configuration, traffic mix, stage or per-layer metric is new files
+and new entries: nothing here changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
+import re
 from pathlib import Path
 from typing import Callable, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent
+DEFAULT_STAGE = "view_pass"
+STAGE_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
 
 @dataclasses.dataclass
@@ -60,3 +66,12 @@ def metric_reader(name: str) -> Callable[[object], Optional[float]]:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def stage_module(cell: Cell):
+    """The module ``mvsbench/stages/<stage>.py`` of the stage the cell's
+    traffic names (``view_pass`` where it names none)."""
+    name = cell.traffic.get("stage", DEFAULT_STAGE)
+    if not STAGE_NAME.match(name):
+        raise ValueError(f"stage {name!r} is not a module name")
+    return importlib.import_module(f"{__package__}.stages.{name}")

@@ -11,10 +11,12 @@ allowing TF32 leaves every bit as it is.
 
     python3 -m mvsbench.control --workload <cell> --seeds <n> [<n> ...]
 
-runs, for each seed, the cell's set-up and one window pass of each kind,
-then the reference and the control on those passes, and prints one JSON
-line a seed: the program's numbers (its sound readings) and the control's.
-It needs the card, like a run.
+runs, for each seed, the control of the stage the cell drives
+(``stages/<stage>.py``, ``control``); the view pass's runs the cell's
+set-up and one window pass of each kind, then the reference and the
+control on those passes.  It prints one JSON line a seed: the program's
+numbers (its sound readings) and the control's.  It needs the card, like
+a run.
 """
 
 from __future__ import annotations
@@ -23,11 +25,10 @@ import argparse
 import contextlib
 import json
 import sys
-import time
 from pathlib import Path
 
 from . import cells as cells_mod
-from . import check, run
+from . import run
 from .trace import KERNEL_ENTRIES
 
 
@@ -73,30 +74,13 @@ def bf16_kernels(torch):
 
 
 def readings(torch, cell, seed: int, card) -> dict:
-    """The program's and the control's numbers on one seed's passes."""
-    plan = run.Plan(cell)
-    cfg = cell.config
-    sc = run.make_cell_scene(plan, cfg, seed)
-    system = run.set_up(plan, cfg, sc, seed, card)
-    _, _, done = run.run_window(plan, system, 0.0, n_max=len(plan.kinds))
-    setup_state = system.setup_state
-    del system
-    card.free()
-    out = {"seed": seed, "program": {}, "control": {}}
-    draws = run.Draws(seed, card.dev)
-    for p, v, it, got in done:
-        kind = run.KIND_NAMES.get(p, p)
-        t0 = time.perf_counter()
-        want = run.reference_pass(plan, cfg, sc, setup_state, plan.round, p,
-                                  v, it, draws, card.dev)
-        t1 = time.perf_counter()
-        with bf16_kernels(torch):
-            low = run.reference_pass(plan, cfg, sc, setup_state, plan.round,
-                                     p, v, it, draws, card.dev)
-        out["program"][kind] = check.numbers(got, want)
-        out["control"][kind] = check.numbers(low, want)
-        out.setdefault("reference_s", {})[kind] = t1 - t0
-    return out
+    """The program's and the control's numbers on one seed's passes: the
+    ``control`` of the stage the cell's traffic drives."""
+    stage = cells_mod.stage_module(cell)
+    if not hasattr(stage, "control"):
+        raise SystemExit(f"mvsbench.control: stage {stage.__name__} has "
+                         f"no control")
+    return stage.control(torch, cell, seed, card)
 
 
 def main(argv=None) -> int:

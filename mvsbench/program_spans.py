@@ -107,12 +107,13 @@ def self_intervals(spans) -> Dict[str, List[Interval]]:
 
 
 def view_passes(rec, prog):
-    """The program's traced view passes; None where it recorded none, or
-    not as many as the traced run made."""
+    """The program's traced passes (its spans ``rec.program_span``, the
+    view pass's ``runner/view_pass`` by default); None where it recorded
+    none, or not as many as the traced run made."""
     if prog is None:
         return None
     passes = [s for s in prog.spans
-              if s.name == VIEW_PASS and s.end_ns is not None]
+              if s.name == rec.program_span and s.end_ns is not None]
     return passes if passes and len(passes) == rec.n_passes else None
 
 

@@ -12,6 +12,7 @@ import torch
 from conftest import tiny_config
 
 from mvsbench import cells, check, control, run
+from mvsbench.stages import view_pass
 
 TRAFFIC_R0 = {"round": 0, "setup": [[0, 0]], "window": [0, 1],
               "trace_passes": 2}
@@ -62,13 +63,13 @@ def _after_set_up(monkeypatch, patch):
     done, so the fault lies under the window's passes only."""
     from dvpmvs_torch.sched import runner as runner_mod
 
-    set_up = run.set_up
+    set_up = view_pass.set_up
 
     def faulty(*a, **kw):
         system = set_up(*a, **kw)
         patch(runner_mod)
         return system
-    monkeypatch.setattr(run, "set_up", faulty)
+    monkeypatch.setattr(view_pass, "set_up", faulty)
     return runner_mod
 
 

@@ -2,19 +2,24 @@
 
 Spans come from the benchmark's own wrappers, installed only in a traced
 run: each wraps a name the program calls, in every module of the program
-that binds it, so the program's own lookups go through the wrapper.
+that binds it, so the program's own lookups go through the wrapper.  The
+stage a traced run drives (``stages/``) names its outer span and what it
+wraps (``Tracer.install``); the defaults here are the view pass's:
 
   runner/run_view_pass    the harness's call of ``SceneRunner.run_view_pass``
-  engine/run_pass         ``run_pass`` as the runner calls it; it ends in a
-                          synchronize, so the runner's share of a pass is the
-                          host wall of the view pass less this one
-  weak/<fn>               ``find_anchors``, ``ransac_fit_plane``
+                          (the stage's ``OUTER_SPAN``)
+  engine/run_pass         ``run_pass`` as the runner calls it (the timed
+                          span); it ends in a synchronize, so the runner's
+                          share of a pass is the host wall of the view pass
+                          less this one
+  weak/<fn>               ``find_anchors``, ``ransac_fit_plane`` (plain
+                          spans)
   kernels/<fn>#<i>        the i-th call of a cost kernel's entry point
                           (``KERNEL_ENTRIES``), with its operations and bytes
-                          counted from its arguments (``measure.py``); the
-                          device is synchronized before the call and at its
-                          end, so what runs on it inside the span is what
-                          the call launched
+                          counted from its arguments (``_work``,
+                          ``measure.py``); the device is synchronized before
+                          the call and at its end, so what runs on it inside
+                          the span is what the call launched
 
 The profiler records the host's operations and the device's; every device
 operation is charged to the innermost spans active on the host when it was
@@ -32,9 +37,10 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
-from . import measure
+from . import measure, program_spans
 
 PREFIX = "mvsbench:"
+OUTER_SPAN = "runner/run_view_pass"
 WEAK_ENTRIES = ("find_anchors", "ransac_fit_plane")
 # the cost kernels' entry points, by the module of ``kernels/`` that holds
 # each (the program's and the reference's alike)
@@ -81,6 +87,8 @@ class TraceRecord:
     busy_s: float
     idle_by_span: Dict[str, float]
     launch_times: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the program's span that bounds a traced pass (``program_spans.py``)
+    program_span: str = program_spans.VIEW_PASS
 
 
 def program_kernel_names(package_dir: Path) -> Tuple[str, ...]:
@@ -141,12 +149,18 @@ def _k4_counts(deferred) -> Tuple[float, float]:
 
 class Tracer:
     """Installs the spans in the program's modules (``install``) and takes
-    them out again (``remove``); ``record`` reads a finished profile."""
+    them out again (``remove``); ``record`` reads a finished profile.
+    ``work(fn, bound arguments)`` gives a kernel call's (operations, bytes,
+    deferred); ``deferred_work(deferred)`` its operations and bytes once the
+    traced passes are over."""
 
-    def __init__(self, torch, package: str, sync: Callable[[], None]):
+    def __init__(self, torch, package: str, sync: Callable[[], None],
+                 work=_work, deferred_work=_k4_counts):
         self.torch = torch
         self.package = package
         self.sync = sync
+        self.work = work
+        self.deferred_work = deferred_work
         self.calls: List[KernelCall] = []
         self._deferred: Dict[int, object] = {}
         self.run_pass_s: List[float] = []
@@ -165,22 +179,27 @@ class Tracer:
     def _span(self, name: str):
         return self.torch.profiler.record_function(PREFIX + name)
 
-    def install(self, run_pass, weak_fns: Dict[str, object],
-                kernel_fns: Dict[str, object]) -> None:
+    def install(self, timed=None, plain: Dict[str, object] = None,
+                kernels: Dict[str, object] = None) -> None:
+        """Spans around ``timed`` (``engine/run_pass``, its host wall taken
+        to a synchronize, into ``run_pass_s``), around each function of
+        ``plain`` (by span name) and around each of ``kernels``
+        (``kernels/<fn>#<i>``, by entry point, counted by ``work``)."""
         tracer = self
 
         def timed_run_pass(*args, **kwargs):
             with tracer._span("engine/run_pass"):
                 t0 = time.perf_counter()
-                out = run_pass(*args, **kwargs)
+                out = timed(*args, **kwargs)
                 tracer.sync()
                 tracer.run_pass_s.append(time.perf_counter() - t0)
             return out
 
-        self._bind(run_pass, timed_run_pass)
-        for fn, original in weak_fns.items():
-            self._bind(original, self._plain_span(f"weak/{fn}", original))
-        for fn, original in kernel_fns.items():
+        if timed is not None:
+            self._bind(timed, timed_run_pass)
+        for name, original in (plain or {}).items():
+            self._bind(original, self._plain_span(name, original))
+        for fn, original in (kernels or {}).items():
             self._bind(original, self._kernel_span(fn, original))
 
     def _plain_span(self, name: str, original):
@@ -195,7 +214,7 @@ class Tracer:
         def wrapper(*args, **kwargs):
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
-            ops, nbytes, deferred = _work(fn, bound.arguments)
+            ops, nbytes, deferred = self.work(fn, bound.arguments)
             i = len(self.calls)
             span = f"kernels/{fn}#{i}"
             self.calls.append(KernelCall(fn, PREFIX + span, ops, nbytes,
@@ -215,16 +234,20 @@ class Tracer:
         self._patched.clear()
 
     def finish_counts(self) -> None:
-        """K4's operations and bytes, from the usable anchors of its calls."""
+        """The deferred calls' operations and bytes (K4's, from the usable
+        anchors of its calls)."""
         for i, deferred in self._deferred.items():
             c = self.calls[i]
-            c.ops, c.nbytes = _k4_counts(deferred)
+            c.ops, c.nbytes = self.deferred_work(deferred)
             c.bound_s, c.bound_by = measure.bound_s(c.ops, c.nbytes)
         self._deferred.clear()
 
-    def record(self, prof, program_kernels: Tuple[str, ...]) -> TraceRecord:
+    def record(self, prof, program_kernels: Tuple[str, ...],
+               outer: str = OUTER_SPAN,
+               program_span: str = program_spans.VIEW_PASS) -> TraceRecord:
         return read_events(prof.profiler.kineto_results.events(),
-                           self.calls, self.run_pass_s, program_kernels)
+                           self.calls, self.run_pass_s, program_kernels,
+                           outer, program_span)
 
 
 def _kind(name: str) -> str:
@@ -240,8 +263,10 @@ _RUNTIME = re.compile(r"^cu(da)?[A-Z]")
 
 
 def read_events(events, calls: List[KernelCall], run_pass_s: List[float],
-                program_kernels: Tuple[str, ...]) -> TraceRecord:
-    """A TraceRecord from the profiler's raw events (``_KinetoEvent``).
+                program_kernels: Tuple[str, ...], outer: str = OUTER_SPAN,
+                program_span: str = program_spans.VIEW_PASS) -> TraceRecord:
+    """A TraceRecord from the profiler's raw events (``_KinetoEvent``); a
+    traced pass is a span ``outer`` of the benchmark's.
 
     A device operation is launched at the host time of its CUDA runtime
     call (the host event of the same correlation id, named ``cuda...`` or
@@ -263,10 +288,9 @@ def read_events(events, calls: List[KernelCall], run_pass_s: List[float],
         elif not name.startswith(PREFIX) and ev.duration_ns() >= 0:
             device.append(ev)
     spans.sort()
-    passes = [(a, b) for a, b, n in spans
-              if n == PREFIX + "runner/run_view_pass"]
+    passes = [(a, b) for a, b, n in spans if n == PREFIX + outer]
     if not passes:
-        raise RuntimeError("the profile holds no traced view pass")
+        raise RuntimeError(f"the profile holds no traced pass ({outer})")
     lo, hi = passes[0][0], max(b for _, b in passes)
 
     points, how = [], {"runtime": 0, "operation": 0, "own start": 0}
@@ -301,7 +325,7 @@ def read_events(events, calls: List[KernelCall], run_pass_s: List[float],
         run_pass_s=list(run_pass_s), device=ops, calls=list(calls),
         program_kernels=program_kernels, window_s=(hi - lo) * 1e-9,
         busy_s=measure.union_length(inside) * 1e-9, idle_by_span=idle,
-        launch_times=how)
+        launch_times=how, program_span=program_span)
 
 
 def span_label(name: str) -> str:
